@@ -27,3 +27,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: multi-minute regression tests (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips itself when torch sees none")
