@@ -8,16 +8,27 @@ exits non-zero without printing a result:
 
 1. device: requires a CUDA card; prints ``nvidia-smi``'s name and power limit;
 2. build: compiles the CUDA kernels from ``g2o_tpu_torch/csrc`` with nvcc;
-3. kernels: K1 (batched Cholesky) and K2 (batched forward substitution)
-   against their plain PyTorch versions on the card, float32 and float64,
-   at the test shapes and the main path's (1, 960, 960); times both at
-   (1, 960, 960);
-4. main path: sphere2500 (``data/sphere2500.g2o``), Huber(1.0), float32 on
-   the card, ``optimize_fused`` with ``PCGSolver(precond="chunk2")`` for 50
-   iterations at most after a warm-up; the final chi2 must be within 1% of
-   the reference g2o's chi2 after 50 iterations, every chi2 finite, and both
-   kernels launched during the run; then the time per layer, and a
-   save/reload round trip of the result.
+3. kernels: K1 (batched Cholesky), K2 (batched forward substitution) and K3
+   (batched backward substitution) against their plain PyTorch versions on
+   the card, float32 and float64, at the test shapes and at the shapes the
+   two main paths give them; times each kernel and its plain version at
+   those path shapes, in turns;
+4. main path, PCG: sphere2500 (``data/sphere2500.g2o``), Huber(1.0),
+   float32 on the card, ``optimize_fused`` with
+   ``PCGSolver(precond="chunk2")`` for 50 iterations at most after a
+   warm-up; the final chi2 must be within 1% of the reference g2o's chi2
+   after 50 iterations, every chi2 finite, and K1 and K2 launched during the
+   run; then the time per layer, and a save/reload round trip of the result;
+5. main path, supernodal: the same problem with
+   ``SupernodalCholeskySolver()``, the direct multifrontal solver; the same
+   chi2 bound, and K1, K2 and K3 launched during the run; then the time of
+   assembly + factorization, of one solve sweep and of the refinement step,
+   and the relative residual of one solve at the final λ.
+
+Each main path also runs 5 LM iterations under ``torch.profiler`` and
+prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
+untraced run's wall time per λ-trial, kernel launches per λ-trial and the
+kernels with the most device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -40,8 +51,17 @@ DATASET = os.path.join(HERE, "data", "sphere2500.g2o")
 CHI2_BOUND = 29741.18 * 1.01
 TOL = {"float32": 2e-5, "float64": 1e-11}   # max|Δ| / max|ref|
 SHAPES = [(7, 12, 5), (33, 48, 1), (5, 126, 96), (1, 960, 960),
-          (1, 672, 672)]
-PATH_SHAPE = (1, 960, 960)
+          (1, 672, 672), (55, 144, 144), (55, 144, 192), (55, 144, 1)]
+# (S, n, m) the main paths give the kernels: the chunk2 coarse level (K1,
+# and K2 with B = I); the supernodal path's largest batch of 144-column
+# panels (K1 on the diagonal panels, K2 on the below-panel blocks, K2 and
+# K3 on the forward and backward sweeps)
+TIMED = [(1, 960, 960), (55, 144, 144), (55, 144, 192), (55, 144, 1)]
+KERNELS = ("chol_batched", "solve_lower_batched", "solve_upper_batched")
+# the shape each kernel's entry in the JSON line reports
+PRIMARY = {"chol_batched": (1, 960, 960),
+           "solve_lower_batched": (1, 960, 960),
+           "solve_upper_batched": (55, 144, 1)}
 
 
 def phase(tag, **facts):
@@ -82,9 +102,13 @@ def _time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def _shape(S, n, m):
+    return f"{S}x{n}x{m}"
+
+
 def kernel_phase(torch, ck):
-    """Kernel vs plain on the card; returns per-kernel error and times at
-    the path shape (float32, the main path's dtype)."""
+    """Kernel vs plain on the card; returns ``{shape: {kernel: {max_abs_err,
+    ms, plain_ms}}}`` at the path shapes (float32, the main paths' dtype)."""
     rng = np.random.default_rng(0)
     out = {}
     for dtype in (torch.float32, torch.float64):
@@ -95,67 +119,69 @@ def kernel_phase(torch, ck):
                  .contiguous() if n == m else
                  torch.as_tensor(rng.standard_normal((S, n, m)), dtype=dtype,
                                  device="cuda"))
-            L = ck.chol_batched(D)
             Lp = ck.chol_batched_plain(D).contiguous()
-            Y = ck.solve_lower_batched(Lp, B)
-            Yp = ck.solve_lower_batched_plain(Lp, B)
-            torch.cuda.synchronize()
-            eL = (L - Lp).abs().max().item()
-            eY = (Y - Yp).abs().max().item()
-            rL, rY = eL / Lp.abs().max().item(), eY / Yp.abs().max().item()
-            ok = rL <= TOL[dname] and rY <= TOL[dname]
-            phase("kernels", dtype=dname, shape=f"{S}x{n}x{m}",
-                  chol_rel_err=f"{rL:.3e}", solve_rel_err=f"{rY:.3e}",
+            fns = {
+                "chol_batched": (lambda: ck.chol_batched(D),
+                                 lambda: ck.chol_batched_plain(D)),
+                "solve_lower_batched": (
+                    lambda: ck.solve_lower_batched(Lp, B),
+                    lambda: ck.solve_lower_batched_plain(Lp, B)),
+                "solve_upper_batched": (
+                    lambda: ck.solve_upper_batched(Lp, B),
+                    lambda: ck.solve_upper_batched_plain(Lp, B)),
+            }
+            err, rel = {}, {}
+            for k, (kern, plain) in fns.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err[k] = (got - want).abs().max().item()
+                rel[k] = err[k] / want.abs().max().item()
+            ok = max(rel.values()) <= TOL[dname]
+            phase("kernels", dtype=dname, shape=_shape(S, n, m),
+                  chol_rel_err=f"{rel['chol_batched']:.3e}",
+                  solve_rel_err=f"{rel['solve_lower_batched']:.3e}",
+                  solve_upper_rel_err=f"{rel['solve_upper_batched']:.3e}",
                   tol=TOL[dname], ok=ok)
             if not ok:
-                raise RuntimeError(f"kernel disagrees with its plain version "
-                                   f"at {dname} {(S, n, m)}")
-            if (S, n, m) == PATH_SHAPE and dtype == torch.float32:
+                raise RuntimeError(f"a kernel disagrees with its plain "
+                                   f"version at {dname} {(S, n, m)}: {rel}")
+            if (S, n, m) in TIMED and dtype == torch.float32:
                 # in turns: plain, kernel, kernel, plain
-                t = {"chol": [], "chol_plain": [], "solve": [],
-                     "solve_plain": []}
+                t = {k: {"kernel": [], "plain": []} for k in fns}
                 for order in (("plain", "kernel"), ("kernel", "plain")):
                     for which in order:
-                        if which == "plain":
-                            t["chol_plain"].append(_time_ms(
-                                torch, lambda: ck.chol_batched_plain(D)))
-                            t["solve_plain"].append(_time_ms(
-                                torch,
-                                lambda: ck.solve_lower_batched_plain(Lp, B)))
-                        else:
-                            t["chol"].append(_time_ms(
-                                torch, lambda: ck.chol_batched(D)))
-                            t["solve"].append(_time_ms(
-                                torch, lambda: ck.solve_lower_batched(Lp, B)))
-                out = {
-                    "chol_batched": dict(max_abs_err=eL,
-                                         ms=float(np.median(t["chol"])),
-                                         plain_ms=float(np.median(
-                                             t["chol_plain"]))),
-                    "solve_lower_batched": dict(
-                        max_abs_err=eY, ms=float(np.median(t["solve"])),
-                        plain_ms=float(np.median(t["solve_plain"]))),
-                }
-                phase("kernel_times", shape="1x960x960", dtype=dname,
-                      **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in out.items()},
+                        for k, (kern, plain) in fns.items():
+                            t[k][which].append(_time_ms(
+                                torch, kern if which == "kernel" else plain))
+                res = {k: dict(max_abs_err=err[k],
+                               ms=float(np.median(t[k]["kernel"])),
+                               plain_ms=float(np.median(t[k]["plain"])))
+                       for k in fns}
+                out[_shape(S, n, m)] = res
+                phase("kernel_times", shape=_shape(S, n, m), dtype=dname,
+                      **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in res.items()},
                       **{f"{k}_plain_ms": f"{v['plain_ms']:.4f}"
-                         for k, v in out.items()})
+                         for k, v in res.items()})
     return out
+
+
+def _wall_ms(torch, fn, reps=5):
+    """Synchronized host wall time of ``fn`` (ms, mean of ``reps`` after one
+    warm call) and its last result."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        r = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, r
 
 
 def layer_times(torch, p, solver, lam):
     """Time each layer alone at the final estimates (synchronized)."""
-    def ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            r = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps, r
-
-    lin_ms, lin = ms(lambda: p.linearize_fn(p.data, p.estimates))
-    pre_ms, minv = ms(lambda: solver.build_precond(p.data, lin, lam))
+    lin_ms, lin = _wall_ms(torch, lambda: p.linearize_fn(p.data, p.estimates))
+    pre_ms, minv = _wall_ms(torch,
+                            lambda: solver.build_precond(p.data, lin, lam))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, st = solver.cg(p.data, lin, lam, minv)
@@ -165,7 +191,86 @@ def layer_times(torch, p, solver, lam):
                 cg_ms_per_iteration=cg_ms / max(st["cg_iterations"], 1))
 
 
+def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5):
+    """``torch.profiler`` over ``iters`` LM iterations from ``est0``.  The
+    tracer slows the host, so the busy share divides the traced device time
+    per λ-trial by the UNtraced run's wall time per λ-trial."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    final = p.estimates
+    p.set_estimates({t: v.clone() for t, v in est0.items()})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = g2o.optimize_fused(p, solver, iters)
+    p.set_estimates(final)
+    trials = sum(res["trials_per_iteration"])
+    ka = prof.key_averages()
+
+    # device-side events only (kernels, copies): an operator's entry also
+    # reports the time of the kernels it launched
+    kern = sorted(((e.self_device_time_total, e.key, e.count) for e in ka
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    dev_ms = sum(k[0] for k in kern) / 1e3 / trials
+    launches = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    phase(f"trace_{tag}", iterations=iters, lm_trials=trials,
+          device_ms_per_lambda_trial=f"{dev_ms:.3f}",
+          untraced_ms_per_lambda_trial=f"{ms_per_trial:.3f}",
+          device_busy_share=f"{dev_ms / ms_per_trial:.4f}",
+          kernel_launches_per_lambda_trial=f"{launches / trials:.1f}",
+          top=";".join(f"{k[:48].replace(' ', '_')}:{us / 1e3:.3f}ms/{n}"
+                       for us, k, n in kern[:8]))
+    if not kern:
+        raise RuntimeError(f"the {tag} trace shows no device time")
+
+
+def _run_lm(torch, g2o, ck, p, est0, solver, tag, need):
+    """Warm up, then run ``optimize_fused(p, solver, 50)`` from ``est0``
+    with every kernel count set to 0 just before; print the ``[tag]`` line
+    and raise unless every chi2 is finite, the final chi2 is within the
+    bound and each kernel of ``need`` launched.  Returns the result and the
+    launch counts of that run."""
+    g2o.optimize_fused(p, solver, 2)                 # warm-up
+    p.set_estimates({t: v.clone() for t, v in est0.items()})
+    for k in KERNELS:
+        getattr(ck, k).launches = 0
+    res = g2o.optimize_fused(p, solver, 50)
+    launches = {k: getattr(ck, k).launches for k in KERNELS}
+    chis = res["chi2_per_iteration"] + [res["chi2_final"]]
+    n = res["iterations"]
+    trials = sum(res["trials_per_iteration"])
+    # LM stops early, as the reference does, when an iteration exhausts
+    # its trials (f32 convergence); the histories then hold n < 50 entries,
+    # the last of them a rejected iteration (its chi2 unchanged).  So the
+    # time per λ-trial (one solve + one linearize) is the rate that stays
+    # comparable between runs that stop at different iterations.
+    rejected_last = res["chi2_final"] == res["chi2_per_iteration"][-1]
+    phase(tag, iterations_requested=50, iterations=n,
+          accepted_iterations=n - rejected_last,
+          ms_per_lm_iteration=f"{res['wall_s'] * 1e3 / max(n, 1):.3f}",
+          ms_per_lambda_trial=f"{res['wall_s'] * 1e3 / max(trials, 1):.3f}",
+          wall_s=f"{res['wall_s']:.3f}",
+          cg_iterations_total=sum(res["cg_per_iteration"]),
+          lm_trials_total=trials,
+          chi2_0=f"{chis[0]:.4f}", chi2_10=f"{chis[min(10, n)]:.4f}",
+          chi2_final=f"{res['chi2_final']:.4f}", bound=f"{CHI2_BOUND:.2f}",
+          **{f"launches_{k}": v for k, v in launches.items()})
+    if not all(math.isfinite(c) for c in chis):
+        raise RuntimeError(f"non-finite chi2 on the {tag} run")
+    if any(launches[k] < 1 for k in need):
+        raise RuntimeError(f"a kernel was not launched on the {tag} run: "
+                           f"{launches}")
+    if not res["chi2_final"] <= CHI2_BOUND:
+        raise RuntimeError(f"{tag}: final chi2 {res['chi2_final']} after {n} "
+                           f"iterations; need <= {CHI2_BOUND}")
+    trace(g2o, p, est0, solver, tag, res["wall_s"] * 1e3 / max(trials, 1))
+    return res, launches
+
+
 def main_path_phase(torch, g2o, ck):
+    """The PCG (chunk2) path and the supernodal path on sphere2500; returns
+    the launch counts of each path's run."""
     from g2o_tpu_torch.io import g2o_format
 
     t0 = time.perf_counter()
@@ -178,41 +283,9 @@ def main_path_phase(torch, g2o, ck):
     est0 = {t: v.clone() for t, v in p.estimates.items()}
     solver = g2o.PCGSolver(max_iter=50, tol=1e-1, precond="chunk2",
                            chunk_size=16)
-    g2o.optimize_fused(p, solver, 2)                 # warm-up
-    p.set_estimates({t: v.clone() for t, v in est0.items()})
-    ck.chol_batched.launches = 0
-    ck.solve_lower_batched.launches = 0
-    res = g2o.optimize_fused(p, solver, 50)
-    launches = {"chol_batched": ck.chol_batched.launches,
-                "solve_lower_batched": ck.solve_lower_batched.launches}
-    chis = res["chi2_per_iteration"] + [res["chi2_final"]]
+    res, launches = _run_lm(torch, g2o, ck, p, est0, solver, "main_path",
+                            need=("chol_batched", "solve_lower_batched"))
     n = res["iterations"]
-    trials = sum(res["trials_per_iteration"])
-    # LM stops early, as the reference does, when an iteration exhausts
-    # its trials (f32 convergence); the histories then hold n < 50 entries,
-    # the last of them a rejected iteration (its chi2 unchanged).  So the
-    # time per λ-trial (one solve + one linearize) is the rate that stays
-    # comparable between runs that stop at different iterations.
-    rejected_last = res["chi2_final"] == res["chi2_per_iteration"][-1]
-    phase("main_path", iterations_requested=50, iterations=n,
-          accepted_iterations=n - rejected_last,
-          ms_per_lm_iteration=f"{res['wall_s'] * 1e3 / max(n, 1):.3f}",
-          ms_per_lambda_trial=f"{res['wall_s'] * 1e3 / max(trials, 1):.3f}",
-          wall_s=f"{res['wall_s']:.3f}",
-          cg_iterations_total=sum(res["cg_per_iteration"]),
-          lm_trials_total=trials,
-          chi2_0=f"{chis[0]:.4f}", chi2_10=f"{chis[min(10, n)]:.4f}",
-          chi2_final=f"{res['chi2_final']:.4f}", bound=f"{CHI2_BOUND:.2f}",
-          **{f"launches_{k}": v for k, v in launches.items()})
-    if not all(math.isfinite(c) for c in chis):
-        raise RuntimeError("non-finite chi2 on the main path")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel was not launched on the main path: "
-                           f"{launches}")
-    if not res["chi2_final"] <= CHI2_BOUND:
-        raise RuntimeError(f"final chi2 {res['chi2_final']} after {n} "
-                           f"iterations; need <= {CHI2_BOUND}")
-
     lt = layer_times(torch, p, solver, res["lambda_final"])
     phase("layers", **{k: f"{v:.3f}" for k, v in lt.items()},
           cg_iterations_per_lm_iteration=
@@ -229,7 +302,67 @@ def main_path_phase(torch, g2o, ck):
     phase("save_reload", chi2=f"{chi_back:.4f}", rel_diff=f"{rel:.3e}")
     if not rel <= 1e-3:
         raise RuntimeError("the saved result does not reload to its chi2")
-    return launches
+
+    # the direct solver on the same problem, from the same start
+    t0 = time.perf_counter()
+    sn = g2o.SupernodalCholeskySolver().setup(p)
+    torch.cuda.synchronize()
+    groups = sn._static["groups"]
+    phase("setup_supernodal", seconds=f"{time.perf_counter() - t0:.3f}",
+          supernodes=sn.meta["n_supernodes"], levels=sn.meta["n_levels"],
+          groups=len(groups), kernel_groups=sum(
+              g["spb"] * 6 > 96 for g in groups),
+          frontal_slots=sn._static["acc_T"])
+    res_sn, launches_sn = _run_lm(torch, g2o, ck, p, est0, sn,
+                                  "main_path_supernodal", need=KERNELS)
+    lt = supernodal_layer_times(torch, p, sn, res_sn["lambda_final"])
+    phase("layers_supernodal", **{k: f"{v:.3e}" if "residual" in k
+                                  else f"{v:.3f}" for k, v in lt.items()})
+    return {"chunk2": launches, "supernodal": launches_sn}
+
+
+def supernodal_layer_times(torch, p, solver, lam):
+    """Time assembly + factorization, one forward/backward sweep and the
+    refinement step alone at the final estimates and λ (synchronized), and
+    the relative residual ``‖b − (H + λI)dx‖ / ‖b‖`` of the single sweep and
+    of the refined solve, with ``hvp_operator`` (float32, as the solve), at
+    the final λ and at λ = 1e-3 (the final λ of a run that stopped on a
+    rejected iteration is large, and its system close to λI)."""
+    data, aux, parts = p.data, solver.aux, solver._parts
+    lin_ms, lin = _wall_ms(torch, lambda: p.linearize_fn(data, p.estimates))
+    fac_ms, factors = _wall_ms(
+        torch, lambda: solver._factor_fn(data, lin, lam, aux))
+    bfull = parts["to_full"](p.split_tangent(lin.b))
+    sweep_ms, _ = _wall_ms(torch,
+                           lambda: parts["sweep"](factors, bfull, aux))
+    hvp = p.hvp_operator(data, lin, precision="highest")
+
+    def refine(factors, lam, x0):
+        # as in the solve: the H·v operator is built, then one residual and
+        # one sweep
+        h = p.hvp_operator(data, lin, precision="highest")
+        r = parts["residual"](data, lam, bfull, x0, h)
+        return x0 + parts["sweep"](factors, r, aux)
+
+    x0 = parts["sweep"](factors, bfull, aux)
+    refine_ms, _ = _wall_ms(torch, lambda: refine(factors, lam, x0))
+    solve_ms, dx = _wall_ms(torch, lambda: solver.solve(data, lin, lam))
+    out = dict(linearize_ms=lin_ms, assemble_factor_ms=fac_ms,
+               sweep_ms=sweep_ms, refine_step_ms=refine_ms,
+               solve_ms=solve_ms, lam=lam)
+    bn = float(bfull.norm())
+    for tag, lm in (("final_lam", lam), ("lam_1e-3", 1e-3)):
+        f = solver._factor_fn(data, lin, lm, aux)
+        x0 = parts["sweep"](f, bfull, aux)
+        x1 = refine(f, lm, x0)
+        for which, x in (("one_sweep", x0), ("refined", x1)):
+            rel = float(parts["residual"](data, lm, bfull, x, hvp).norm()) / bn
+            if not math.isfinite(rel):
+                raise RuntimeError(f"non-finite supernodal solve at λ={lm}")
+            out[f"rel_residual_{which}_{tag}"] = rel
+    if not bool(torch.isfinite(dx).all()):
+        raise RuntimeError("non-finite supernodal solve at the final λ")
+    return out
 
 
 def main():
@@ -246,14 +379,19 @@ def main():
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           flags=" ".join(ck.NVCC_FLAGS).replace(" ", "_"))
     times = kernel_phase(torch, ck)
-    launches = main_path_phase(torch, g2o, ck)
+    by_path = main_path_phase(torch, g2o, ck)
 
     src = "g2o_tpu_torch/csrc/batched_chol.cu"
     replaces = {"chol_batched": "g2o_tpu/ops/pallas_chol.py:89",
-                "solve_lower_batched": "g2o_tpu/ops/pallas_chol.py:188"}
+                "solve_lower_batched": "g2o_tpu/ops/pallas_chol.py:188",
+                "solve_upper_batched": "g2o_tpu/ops/pallas_chol.py:194"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": launches[k], **times[k]} for k in replaces]}))
+         "launches": sum(c[k] for c in by_path.values()),
+         "launches_by_path": {path: c[k] for path, c in by_path.items()},
+         "shape": _shape(*PRIMARY[k]), **times[_shape(*PRIMARY[k])][k],
+         "by_shape": {sh: t[k] for sh, t in times.items()}}
+        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

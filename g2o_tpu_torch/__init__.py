@@ -22,6 +22,8 @@ from g2o_tpu_torch.core.lm_fused import optimize_fused  # noqa: E402
 from g2o_tpu_torch.core.optimizer import (LevenbergMarquardt,  # noqa: E402
                                           SparseOptimizer)
 from g2o_tpu_torch.core.solvers.pcg import PCGSolver  # noqa: E402
+from g2o_tpu_torch.core.solvers.supernodal import (  # noqa: E402
+    SupernodalCholeskySolver)
 
 __all__ = ["Graph", "SparseOptimizer", "LevenbergMarquardt",
-           "optimize_fused", "PCGSolver"]
+           "optimize_fused", "PCGSolver", "SupernodalCholeskySolver"]

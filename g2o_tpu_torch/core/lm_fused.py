@@ -50,16 +50,25 @@ def _cap_cache(cache, limit: int = 8):
 def make_lm_iteration(problem, solver, max_trials: int):
     """The LM iteration ``(estimates, lam, ni, sstate, lin) -> (estimates',
     chi0, chi_final, lam', ni', good, trials, sstate', cg_total, lin')``.
-    ``sstate`` is the solver's carried state (the PCG residual floor)."""
+
+    A solver with the STATEFUL protocol (``solver._solve_state_fn(data,
+    lin, lam, state) -> (dx, state', stats)``) threads ``sstate`` — e.g. the
+    PCG residual floor — through every trial.  Any other solver is called
+    as ``solver._solve_fn(data, lin, lam, solver.aux)``, its state passes
+    through unused and its CG count is 0."""
     p = problem
+    solve_state_fn = getattr(solver, "_solve_state_fn", None)
 
     def one_iteration(estimates, lam, ni, sstate, lin):
         chi0 = float(lin.chi2_robust)
         good, trials, cg = False, 0, 0
         est_out, chi_out, lin_out = estimates, chi0, lin
         while not good and trials < max_trials:
-            dx, sstate, st = solver._solve_state_fn(p.data, lin, lam, sstate)
-            cg += int(st.get("cg_iterations", 0))
+            if solve_state_fn is not None:
+                dx, sstate, st = solve_state_fn(p.data, lin, lam, sstate)
+                cg += int(st.get("cg_iterations", 0))
+            else:
+                dx = solver._solve_fn(p.data, lin, lam, solver.aux)
             cand = p.apply_update_fn(p.data, estimates, dx)
             lin_cand = p.linearize_fn(p.data, cand)
             chi_new = float(lin_cand.chi2_robust)
@@ -95,7 +104,7 @@ def optimize_fused(problem, solver, max_iterations: int, *,
         one_iteration = make_lm_iteration(problem, solver, max_trials)
         _cap_cache(cache)
         cache[key] = one_iteration
-    sstate = solver.state0
+    sstate = getattr(solver, "state0", None)
     cuda = problem.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(problem.device)

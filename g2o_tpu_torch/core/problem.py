@@ -236,13 +236,20 @@ class Problem:
                                 self.join_tangent(b_blocks), diag, chi2_r,
                                 chi2_p)
 
-    def hvp_operator(self, data: ProblemData, lin: LinearizedSystem):
+    def hvp_operator(self, data: ProblemData, lin: LinearizedSystem,
+                     precision=None):
         """The ``H·v`` closure for CG loops, in block layout.
 
         Precomputed once per linearization: the slot-concatenated Jacobian
         ``Jcat (E, r, K)`` and ``WJ = W·Jcat``.  Each application is, per
         edge type, one row gather, ``z = WJ·v_rows``, ``Jcatᵀz`` and one
-        ``index_add_`` per vertex type."""
+        ``index_add_`` per vertex type.
+
+        ``precision`` (``None``, ``"default"`` or ``"highest"``) is accepted
+        for API parity with the JAX package: TF32 is off package-wide, so
+        the products are full precision either way."""
+        if precision not in (None, "default", "highest"):
+            raise ValueError(f"unknown precision {precision!r}")
         pre = {}
         for name in self.edge_types:
             Jcat = torch.cat(self.edge_jacs(lin, name), dim=2)   # (E, r, K)

@@ -1,3 +1,5 @@
 """Linear solvers."""
 
 from g2o_tpu_torch.core.solvers.pcg import PCGSolver  # noqa: F401
+from g2o_tpu_torch.core.solvers.supernodal import (  # noqa: F401
+    SupernodalCholeskySolver)

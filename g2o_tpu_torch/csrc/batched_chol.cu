@@ -1,8 +1,10 @@
-// Batched Cholesky factorization and forward substitution for Hopper (sm_90a).
+// Batched Cholesky factorization and forward/backward substitution for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of g2o_tpu/ops/pallas_chol.py:
 //   K1  chol_batched         (_chol_kernel)          -> g2o_chol_batched_f32/_f64
 //   K2  solve_lower_batched  (_solve_lower_kernel)   -> g2o_solve_lower_batched_f32/_f64
+//   K3  solve_upper_batched  (_solve_upper_kernel)   -> g2o_solve_upper_batched_f32/_f64
 // Plain C entry points (no PyTorch headers) so nvcc builds the library in
 // seconds; g2o_tpu_torch/ops/chol_kernels.py loads it with ctypes.  Every
 // matrix is row-major and contiguous, S matrices back to back.  Kernels
@@ -43,6 +45,20 @@
 // the 32 independent running sums give each thread instruction-level
 // parallelism.  Using B = I (the coarse inverse) or fusing K1 and K2 is
 // later work.
+//
+// K3 design.  X = L^-T B with L lower (the backward sweep of the
+// supernodal solve) is K2's mirror: one thread per (matrix, rhs column)
+// sweeps the rows in NB-row tiles from the BOTTOM up.  For each finished
+// tile below the current one it stages the NB x NB tile of L transposed in
+// shared memory (a coalesced row read of L, written column-wise into the
+// padded tile), subtracts it times its own finished X rows, then solves
+// the transposed diagonal tile bottom up.  Only the lower triangle of L is
+// used (the diagonal tile is staged whole; its upper half is never read
+// back).  The TPU version's U = L^T row-access layout has no use here.
+// Bound: on the supernodal path it runs at (S, 144, 1): n^2/2 FMAs per
+// matrix on ONE live thread per 32-thread block, so it is latency-bound on
+// the per-thread sweep and most of each warp idles; a per-matrix
+// cooperative design for m = 1 is later work.
 
 #include <cuda_runtime.h>
 
@@ -194,6 +210,58 @@ __global__ void solve_lower(const T* L, const T* B, T* Y, int n, int m) {
   }
 }
 
+// X = L^-T B; one thread per rhs column, blockDim.x == NB.
+template <typename T>
+__global__ void solve_upper(const T* L, const T* B, T* X, int n, int m) {
+  __shared__ T t[NB][NB + 1];
+  const T* l = L + (size_t)blockIdx.z * n * n;
+  const T* b = B + (size_t)blockIdx.z * n * m;
+  T* x = X + (size_t)blockIdx.z * n * m;
+  const int tx = threadIdx.x;
+  const int col = blockIdx.x * NB + tx;
+  const bool live = col < m;
+  const int last = ((n - 1) / NB) * NB;
+  for (int i0 = last; i0 >= 0; i0 -= NB) {
+    T acc[NB];
+#pragma unroll
+    for (int ii = 0; ii < NB; ++ii)
+      acc[ii] = (live && i0 + ii < n) ? b[(size_t)(i0 + ii) * m + col] : T(0);
+    for (int k0 = i0 + NB; k0 < n; k0 += NB) {
+      __syncthreads();
+      // t[ii][kk] = L[k0 + kk][i0 + ii] = (L^T)[i0 + ii][k0 + kk]
+      for (int rr = 0; rr < NB; ++rr) {
+        const int r = k0 + rr;
+        t[tx][rr] = r < n ? l[(size_t)r * n + i0 + tx] : T(0);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < NB; ++kk) {
+        const T xk = (live && k0 + kk < n) ? x[(size_t)(k0 + kk) * m + col] : T(0);
+#pragma unroll
+        for (int ii = 0; ii < NB; ++ii) acc[ii] -= t[ii][kk] * xk;
+      }
+    }
+    __syncthreads();
+    // transposed diagonal tile; rows past n get a unit diagonal so the
+    // sweep stays finite
+    for (int rr = 0; rr < NB; ++rr) {
+      const int r = i0 + rr, c = i0 + tx;
+      t[tx][rr] = (r < n && c < n) ? l[(size_t)r * n + c] : (rr == tx ? T(1) : T(0));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ii = NB - 1; ii >= 0; --ii) {
+      T s = acc[ii];
+#pragma unroll
+      for (int kk = ii + 1; kk < NB; ++kk) s -= t[ii][kk] * acc[kk];
+      acc[ii] = s / t[ii][ii];
+    }
+#pragma unroll
+    for (int ii = 0; ii < NB; ++ii)
+      if (live && i0 + ii < n) x[(size_t)(i0 + ii) * m + col] = acc[ii];
+  }
+}
+
 template <typename T>
 int chol_batched(T* out, const T* D, int S, int n, cudaStream_t st) {
   cudaError_t err = cudaMemcpyAsync(out, D, sizeof(T) * (size_t)S * n * n,
@@ -220,6 +288,13 @@ int solve_lower_batched(const T* L, const T* B, T* Y, int S, int n, int m,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int solve_upper_batched(const T* L, const T* B, T* X, int S, int n, int m,
+                        cudaStream_t st) {
+  solve_upper<T><<<dim3((m + NB - 1) / NB, 1, S), NB, 0, st>>>(L, B, X, n, m);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,6 +316,18 @@ int g2o_solve_lower_batched_f32(const void* L, const void* B, void* Y, int S, in
 int g2o_solve_lower_batched_f64(const void* L, const void* B, void* Y, int S, int n,
                                 int m, void* stream) {
   return solve_lower_batched<double>((const double*)L, (const double*)B, (double*)Y, S,
+                                     n, m, (cudaStream_t)stream);
+}
+
+int g2o_solve_upper_batched_f32(const void* L, const void* B, void* X, int S, int n,
+                                int m, void* stream) {
+  return solve_upper_batched<float>((const float*)L, (const float*)B, (float*)X, S, n, m,
+                                    (cudaStream_t)stream);
+}
+
+int g2o_solve_upper_batched_f64(const void* L, const void* B, void* X, int S, int n,
+                                int m, void* stream) {
+  return solve_upper_batched<double>((const double*)L, (const double*)B, (double*)X, S,
                                      n, m, (cudaStream_t)stream);
 }
 

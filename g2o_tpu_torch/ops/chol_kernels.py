@@ -1,5 +1,6 @@
-"""Batched Cholesky (K1) and forward substitution (K2) — the Hopper port of
-``g2o_tpu/ops/pallas_chol.py::chol_batched`` and ``::solve_lower_batched``.
+"""Batched Cholesky (K1), forward substitution (K2) and backward
+substitution (K3) — the Hopper port of ``g2o_tpu/ops/pallas_chol.py::
+chol_batched``, ``::solve_lower_batched`` and ``::solve_upper_batched``.
 
 The kernels are CUDA C++ in ``g2o_tpu_torch/csrc/batched_chol.cu`` (its
 header says what bounds them and how they are laid out).  They are built
@@ -73,7 +74,9 @@ def _load():
             fn.argtypes = [vp, vp, ci, ci, vp]
             fn.restype = ci
         for name in ("g2o_solve_lower_batched_f32",
-                     "g2o_solve_lower_batched_f64"):
+                     "g2o_solve_lower_batched_f64",
+                     "g2o_solve_upper_batched_f32",
+                     "g2o_solve_upper_batched_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             fn.restype = ci
@@ -110,8 +113,12 @@ def _stream(dev):
 # --------------------------------------------------------------------------- #
 
 def chol_batched_plain(D):
-    """Lower Cholesky factor of each SPD ``(n, n)`` matrix of ``(S, n, n)``."""
-    return torch.linalg.cholesky(D)
+    """Lower Cholesky factor of each SPD ``(n, n)`` matrix of ``(S, n, n)``.
+    A matrix that is not positive definite gets a NaN factor, as from the
+    kernel (whose square root of a negative pivot spreads NaN), so an LM
+    trial on it fails on a non-finite chi2 instead of raising."""
+    L, info = torch.linalg.cholesky_ex(D)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
 
 
 def chol_batched(D):
@@ -142,8 +149,34 @@ chol_batched.launches = 0
 
 
 # --------------------------------------------------------------------------- #
-# K2: batched forward substitution
+# K2 / K3: batched forward and backward substitution
 # --------------------------------------------------------------------------- #
+
+def _launch_solve(wrapper, L, B):
+    """Launch ``g2o_<wrapper name>_f32/_f64`` on CUDA tensors ``L (S, n, n)``
+    and ``B (S, n, m)``, count it in ``wrapper.launches`` and return the
+    solution."""
+    name = wrapper.__name__
+    if L.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {L.device}")
+    _check(name, L, B)
+    S, n, n2 = L.shape
+    if n != n2 or B.shape[0] != S or B.shape[1] != n:
+        raise ValueError(f"{name}: shapes {tuple(L.shape)} and "
+                         f"{tuple(B.shape)} do not match")
+    m = B.shape[2]
+    out = torch.empty_like(B)
+    if S == 0 or n == 0 or m == 0:
+        return out
+    fn = getattr(_load(), f"g2o_{name}_{_SUFFIX[L.dtype]}")
+    with torch.cuda.device(L.device):
+        err = fn(L.data_ptr(), B.data_ptr(), out.data_ptr(), S, n, m,
+                 _stream(L.device))
+    if err:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
+    wrapper.launches += 1
+    return out
+
 
 def solve_lower_batched_plain(L, B):
     """Solve ``L Y = B`` for lower-triangular ``L (S, n, n)``, ``B (S, n, m)``."""
@@ -155,26 +188,23 @@ def solve_lower_batched(L, B):
     version on CPU tensors."""
     if L.device.type == "cpu" and B.device.type == "cpu":
         return solve_lower_batched_plain(L, B)
-    if L.device.type != "cuda":
-        raise ValueError(f"solve_lower_batched: unsupported device {L.device}")
-    _check("solve_lower_batched", L, B)
-    S, n, n2 = L.shape
-    if n != n2 or B.shape[0] != S or B.shape[1] != n:
-        raise ValueError(f"solve_lower_batched: shapes {tuple(L.shape)} and "
-                         f"{tuple(B.shape)} do not match")
-    m = B.shape[2]
-    Y = torch.empty_like(B)
-    if S == 0 or n == 0 or m == 0:
-        return Y
-    fn = getattr(_load(), f"g2o_solve_lower_batched_{_SUFFIX[L.dtype]}")
-    with torch.cuda.device(L.device):
-        err = fn(L.data_ptr(), B.data_ptr(), Y.data_ptr(), S, n, m,
-                 _stream(L.device))
-    if err:
-        raise RuntimeError(f"solve_lower_batched kernel failed: CUDA error "
-                           f"{err}")
-    solve_lower_batched.launches += 1
-    return Y
+    return _launch_solve(solve_lower_batched, L, B)
 
 
 solve_lower_batched.launches = 0
+
+
+def solve_upper_batched_plain(L, B):
+    """Solve ``Lᵀ X = B`` given the LOWER factor ``L (S, n, n)``, ``B (S, n, m)``."""
+    return torch.linalg.solve_triangular(L.mT, B, upper=True)
+
+
+def solve_upper_batched(L, B):
+    """Solve ``Lᵀ X = B`` batched (``L`` lower): the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if L.device.type == "cpu" and B.device.type == "cpu":
+        return solve_upper_batched_plain(L, B)
+    return _launch_solve(solve_upper_batched, L, B)
+
+
+solve_upper_batched.launches = 0

@@ -1,4 +1,5 @@
-"""Port parity: the batched Cholesky (K1) and forward substitution (K2).
+"""Port parity: the batched Cholesky (K1), forward substitution (K2) and
+backward substitution (K3).
 
 On the CPU the wrappers run their plain PyTorch versions, held here against
 the Pallas kernels in interpret mode at the shapes of
@@ -14,7 +15,8 @@ import pytest
 import torch
 
 from g2o_tpu.core.solvers import supernodal as jsn
-from g2o_tpu.ops.pallas_chol import chol_batched, solve_lower_batched
+from g2o_tpu.ops.pallas_chol import (chol_batched, solve_lower_batched,
+                                     solve_upper_batched)
 from g2o_tpu_torch.core.solvers import supernodal as tsn
 from g2o_tpu_torch.ops import chol_kernels
 
@@ -33,13 +35,20 @@ def test_plain_versions_match_pallas_kernels(S, n, m):
     Yj = np.asarray(solve_lower_batched(jnp.asarray(Lj, jnp.float32),
                                         jnp.asarray(B), interpret=True),
                     np.float64)
+    Xj = np.asarray(solve_upper_batched(jnp.asarray(Lj, jnp.float32),
+                                        jnp.asarray(B), interpret=True),
+                    np.float64)
     Lt = chol_kernels.chol_batched(torch.as_tensor(D))
     Yt = chol_kernels.solve_lower_batched(Lt, torch.as_tensor(B))
+    Xt = chol_kernels.solve_upper_batched(
+        torch.as_tensor(Lj, dtype=torch.float32), torch.as_tensor(B))
     assert Lt.dtype == torch.float32 and Yt.shape == (S, n, m)
-    Lt, Yt = Lt.double().numpy(), Yt.double().numpy()
+    assert Xt.dtype == torch.float32 and Xt.shape == (S, n, m)
+    Lt, Yt, Xt = Lt.double().numpy(), Yt.double().numpy(), Xt.double().numpy()
     # both are f32 factorizations summed in different orders
     assert np.abs(Lt - Lj).max() <= 1e-5 * np.abs(Lj).max()
     assert np.abs(Yt - Yj).max() <= 1e-5 * max(np.abs(Yj).max(), 1.0)
+    assert np.abs(Xt - Xj).max() <= 1e-5 * max(np.abs(Xj).max(), 1.0)
     Lref = np.linalg.cholesky(D.astype(np.float64))
     assert np.abs(Lt - Lref).max() <= 5e-6 * np.abs(Lref).max()
 
@@ -54,15 +63,23 @@ def test_dispatch_matches_supernodal_blocked_path():
         jnp.asarray(D), 6))
     Yj = np.asarray(jax.jit(jsn._solve_lower_batched, static_argnums=2)(
         jnp.asarray(Lj), jnp.asarray(B), 6))
+    Bv = rng.standard_normal((1, 192, 3))
+    Xj = np.asarray(jax.jit(jsn._solve_upper_batched, static_argnums=2)(
+        jnp.asarray(Lj), jnp.asarray(Bv), 6))
     before = (chol_kernels.chol_batched.launches,
-              chol_kernels.solve_lower_batched.launches)
+              chol_kernels.solve_lower_batched.launches,
+              chol_kernels.solve_upper_batched.launches)
     Lt = tsn._chol_batched(torch.as_tensor(D), 6)
     Yt = tsn._solve_lower_batched(Lt, torch.as_tensor(B), 6)
+    Xt = tsn._solve_upper_batched(Lt, torch.as_tensor(Bv), 6)
     np.testing.assert_allclose(Lt.numpy(), Lj, rtol=1e-12, atol=1e-13)
     np.testing.assert_allclose(Yt.numpy(), Yj, rtol=1e-12, atol=1e-13)
+    np.testing.assert_allclose(Xt.numpy(), Xj, rtol=1e-12,
+                               atol=1e-13 * np.abs(Xj).max())
     # CPU tensors never count as kernel launches
     assert (chol_kernels.chol_batched.launches,
-            chol_kernels.solve_lower_batched.launches) == before
+            chol_kernels.solve_lower_batched.launches,
+            chol_kernels.solve_upper_batched.launches) == before
 
 
 @pytest.mark.parametrize("sd,d", [(96, 6), (100, 6)])
