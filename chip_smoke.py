@@ -7,12 +7,16 @@ Phases, each printing one line of facts; any failure raises and the script
 exits non-zero without printing a result:
 
 1. device: requires a CUDA card; prints ``nvidia-smi``'s name and power limit;
-2. build: compiles the CUDA kernels from ``g2o_tpu_torch/csrc`` with nvcc;
+2. build: compiles the CUDA kernels from ``g2o_tpu_torch/csrc`` with nvcc,
+   one process per source, all started together;
 3. kernels: K1 (batched Cholesky), K2 (batched forward substitution) and K3
    (batched backward substitution) against their plain PyTorch versions on
    the card, float32 and float64, at the test shapes and at the shapes the
-   two main paths give them; times each kernel and its plain version at
-   those path shapes, in turns;
+   two main paths give them; times each kernel, its plain version and the
+   one PyTorch call that computes the same function at those path shapes,
+   in turns.  Then K4 (segment sum) the same way, at the Pallas test
+   shapes, an unsorted shape with out-of-range ids, and the two bundle
+   adjustment paths' shapes with their real segment ids;
 4. main path, PCG: sphere2500 (``data/sphere2500.g2o``), Huber(1.0),
    float32 on the card, ``optimize_fused`` with
    ``PCGSolver(precond="chunk2")`` for 50 iterations at most after a
@@ -23,17 +27,31 @@ exits non-zero without printing a result:
    ``SupernodalCholeskySolver()``, the direct multifrontal solver; the same
    chi2 bound, and K1, K2 and K3 launched during the run; then the time of
    assembly + factorization, of one solve sweep and of the refinement step,
-   and the relative residual of one solve at the final λ.
+   and the relative residual of one solve at the final λ;
+6. main path, bundle adjustment: the ladybug-scale BAL file
+   (``data/bal_cache/bal-C49-P7000-K5-N1-S0.txt.gz``, no robust kernel) and
+   the stress file (``balstress-…-seed0``, Huber 1.0), both with every
+   camera free, float32 on the card, ``optimize_fused`` with
+   ``SchurSolver(use_pallas=True)`` for 10 iterations after a warm-up; the
+   chi2 after 10 iterations must be within 1% of the reference g2o's
+   (Cholesky) chi2 after 10, every chi2 finite, and K4 launched once per
+   λ-trial; then the time per layer (linearize, the B blocks, the pair
+   products, K4, the Hpp build, the dense factor and solve, the
+   back-substitution) and the relative residual of one solve.
 
 Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
 untraced run's wall time per λ-trial, kernel launches per λ-trial and the
 kernels with the most device time.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (its
+launches on each main path, its error against its plain version, its time,
+the plain version's and the library call's, and the least time the card
+could take for the same work); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
+import gzip
 import json
 import math
 import os
@@ -50,6 +68,25 @@ DATASET = os.path.join(HERE, "data", "sphere2500.g2o")
 # (baseline_measured.json, sphere2500.chi2_after_50_iters), +1%
 CHI2_BOUND = 29741.18 * 1.01
 TOL = {"float32": 2e-5, "float64": 1e-11}   # max|Δ| / max|ref|
+BAL = os.path.join(HERE, "data", "bal_cache")
+# the bundle adjustment paths: file, Huber width, the reference g2o's chi2
+# after 10 LM iterations with its Cholesky solver (baseline_measured.json
+# ladybug_ba.chi2_after_10_iters, bal_stress.chi2_after_10_iters_chol) +1%,
+# and its CPU seconds per LM iteration with that solver
+BA_PATHS = {
+    "ladybug": dict(
+        file="bal-C49-P7000-K5-N1-S0.txt.gz", huber=0.0,
+        bound=48790.33 * 1.01, ref_s_per_iter=0.0656),
+    "stress": dict(
+        file="balstress-depth_sigma0.8-estimate_noise1-hub_boost10-"
+             "hub_fraction0.1-mean_obs_per_point6-n_cameras120-"
+             "n_points30000-outlier_fraction0.07-pixel_noise1-seed0.txt.gz",
+        huber=1.0, bound=13338643.1 * 1.01, ref_s_per_iter=0.6061),
+}
+# published H100 SXM peaks: HBM bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
 SHAPES = [(7, 12, 5), (33, 48, 1), (5, 126, 96), (1, 960, 960),
           (1, 672, 672), (55, 144, 144), (55, 144, 192), (55, 144, 1)]
 # (S, n, m) the main paths give the kernels: the chunk2 coarse level (K1,
@@ -57,7 +94,8 @@ SHAPES = [(7, 12, 5), (33, 48, 1), (5, 126, 96), (1, 960, 960),
 # panels (K1 on the diagonal panels, K2 on the below-panel blocks, K2 and
 # K3 on the forward and backward sweeps)
 TIMED = [(1, 960, 960), (55, 144, 144), (55, 144, 192), (55, 144, 1)]
-KERNELS = ("chol_batched", "solve_lower_batched", "solve_upper_batched")
+KERNELS = ("chol_batched", "solve_lower_batched", "solve_upper_batched",
+           "segment_sum")
 # the shape each kernel's entry in the JSON line reports
 PRIMARY = {"chol_batched": (1, 960, 960),
            "solve_lower_batched": (1, 960, 960),
@@ -106,6 +144,35 @@ def _shape(S, n, m):
     return f"{S}x{n}x{m}"
 
 
+def bound(name, shape, width=4):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``name`` at ``shape`` in a ``width``-byte float type — the larger of
+    the bytes it must move (each input read once, each output written once)
+    over the memory rate, and its operations over the float32 rate."""
+    if name == "segment_sum":
+        N, D, S = shape
+        nbytes, ops = (N * D + S * D) * width + N * 4, N * D
+    else:
+        S, n, m = shape
+        if name == "chol_batched":
+            nbytes, ops = 2 * S * n * n * width, 2 * S * n ** 3 / 3
+        else:                      # n²m/2 multiply-adds
+            nbytes, ops = (S * n * n + 2 * S * n * m) * width, S * n * n * m
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _in_turns(torch, fns):
+    """Median ms of each of ``fns`` ({which: fn}), timed in turns: the
+    given order, then reversed."""
+    t = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            t[k].append(_time_ms(torch, fns[k]))
+    return {k: float(np.median(v)) for k, v in t.items()}
+
+
 def kernel_phase(torch, ck):
     """Kernel vs plain on the card; returns ``{shape: {kernel: {max_abs_err,
     ms, plain_ms}}}`` at the path shapes (float32, the main paths' dtype)."""
@@ -120,18 +187,24 @@ def kernel_phase(torch, ck):
                  torch.as_tensor(rng.standard_normal((S, n, m)), dtype=dtype,
                                  device="cuda"))
             Lp = ck.chol_batched_plain(D).contiguous()
+            # (kernel, plain version, the one library call)
             fns = {
                 "chol_batched": (lambda: ck.chol_batched(D),
-                                 lambda: ck.chol_batched_plain(D)),
+                                 lambda: ck.chol_batched_plain(D),
+                                 lambda: torch.linalg.cholesky_ex(D)),
                 "solve_lower_batched": (
                     lambda: ck.solve_lower_batched(Lp, B),
-                    lambda: ck.solve_lower_batched_plain(Lp, B)),
+                    lambda: ck.solve_lower_batched_plain(Lp, B),
+                    lambda: torch.linalg.solve_triangular(Lp, B,
+                                                          upper=False)),
                 "solve_upper_batched": (
                     lambda: ck.solve_upper_batched(Lp, B),
-                    lambda: ck.solve_upper_batched_plain(Lp, B)),
+                    lambda: ck.solve_upper_batched_plain(Lp, B),
+                    lambda: torch.linalg.solve_triangular(Lp.mT, B,
+                                                          upper=True)),
             }
             err, rel = {}, {}
-            for k, (kern, plain) in fns.items():
+            for k, (kern, plain, _) in fns.items():
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
                 err[k] = (got - want).abs().max().item()
@@ -146,22 +219,83 @@ def kernel_phase(torch, ck):
                 raise RuntimeError(f"a kernel disagrees with its plain "
                                    f"version at {dname} {(S, n, m)}: {rel}")
             if (S, n, m) in TIMED and dtype == torch.float32:
-                # in turns: plain, kernel, kernel, plain
-                t = {k: {"kernel": [], "plain": []} for k in fns}
-                for order in (("plain", "kernel"), ("kernel", "plain")):
-                    for which in order:
-                        for k, (kern, plain) in fns.items():
-                            t[k][which].append(_time_ms(
-                                torch, kern if which == "kernel" else plain))
-                res = {k: dict(max_abs_err=err[k],
-                               ms=float(np.median(t[k]["kernel"])),
-                               plain_ms=float(np.median(t[k]["plain"])))
-                       for k in fns}
+                # in turns: plain, library, kernel, kernel, library, plain
+                res = {}
+                for k, (kern, plain, lib) in fns.items():
+                    t = _in_turns(torch, {"plain_ms": plain,
+                                          "library_ms": lib, "ms": kern})
+                    b_ms, b_by = bound(k, (S, n, m))
+                    res[k] = dict(max_abs_err=err[k], ms=t["ms"],
+                                  plain_ms=t["plain_ms"],
+                                  library_ms=t["library_ms"],
+                                  bound_ms=b_ms, bound_by=b_by)
                 out[_shape(S, n, m)] = res
                 phase("kernel_times", shape=_shape(S, n, m), dtype=dname,
                       **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in res.items()},
                       **{f"{k}_plain_ms": f"{v['plain_ms']:.4f}"
+                         for k, v in res.items()},
+                      **{f"{k}_library_ms": f"{v['library_ms']:.4f}"
+                         for k, v in res.items()},
+                      **{f"{k}_bound_ms": f"{v['bound_ms']:.4f}"
                          for k, v in res.items()})
+    return out
+
+
+def segment_kernel_phase(torch, sk, ba):
+    """K4 against its plain version on the card, float32 and float64, at the
+    Pallas test shapes, an unsorted shape with out-of-range ids and each
+    bundle adjustment path's shape with its solver's real (sorted) segment
+    ids; times it, the plain version and ``index_add`` at the path shapes
+    (float32, the paths' dtype), in turns.  Returns ``{shape: {...}}``."""
+    rng = np.random.default_rng(1)
+    cases = [((1000, 81, 37), None), ((5000, 16, 300), None),
+             ((100, 128, 8), None), ((7, 4, 2), None),
+             ((700, 200, 37), "out_of_range")]
+    for name, (_, solver) in ba.items():
+        seg = solver.aux["pair_seg"]
+        cases.append(((seg.shape[0], solver._layout["dp"] ** 2,
+                       solver._layout["n_uniq"]), name))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        for (N, D, S), kind in cases:
+            if kind in ba:
+                ids = ba[kind][1].aux["pair_seg"]
+            else:
+                lo, hi = (-3, S + 5) if kind == "out_of_range" else (0, S)
+                ids = torch.as_tensor(rng.integers(lo, hi, N).astype(np.int32),
+                                      device="cuda")
+            V = torch.as_tensor(rng.standard_normal((N, D)), dtype=dtype,
+                                device="cuda")
+            got = sk.segment_sum(V, ids, S)
+            want = sk.segment_sum_plain(V, ids, S)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            shape = f"{N}x{D}->{S}"
+            ok = rel <= TOL[dname]
+            phase("kernels", kernel="segment_sum", dtype=dname, shape=shape,
+                  ids=kind or "random", rel_err=f"{rel:.3e}", tol=TOL[dname],
+                  ok=ok)
+            if not ok:
+                raise RuntimeError(f"segment_sum disagrees with its plain "
+                                   f"version at {dname} {shape}: {rel}")
+            if kind in ba and dtype == torch.float32:
+                Z = torch.zeros((S, D), dtype=dtype, device="cuda")
+                t = _in_turns(torch, {
+                    "plain_ms": lambda: sk.segment_sum_plain(V, ids, S),
+                    "library_ms": lambda: torch.index_add(Z, 0, ids, V),
+                    "ms": lambda: sk.segment_sum(V, ids, S)})
+                b_ms, b_by = bound("segment_sum", (N, D, S))
+                out[shape] = {"segment_sum": dict(
+                    max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                    library_ms=t["library_ms"], bound_ms=b_ms,
+                    bound_by=b_by)}
+                phase("kernel_times", kernel="segment_sum", path=kind,
+                      shape=shape, dtype=dname, ms=f"{t['ms']:.4f}",
+                      plain_ms=f"{t['plain_ms']:.4f}",
+                      library_ms=f"{t['library_ms']:.4f}",
+                      bound_ms=f"{b_ms:.4f}", bound_by=b_by)
     return out
 
 
@@ -225,18 +359,19 @@ def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5):
         raise RuntimeError(f"the {tag} trace shows no device time")
 
 
-def _run_lm(torch, g2o, ck, p, est0, solver, tag, need):
-    """Warm up, then run ``optimize_fused(p, solver, 50)`` from ``est0``
+def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
+            iters=50, chi2_bound=CHI2_BOUND, extra=None):
+    """Warm up, then run ``optimize_fused(p, solver, iters)`` from ``est0``
     with every kernel count set to 0 just before; print the ``[tag]`` line
-    and raise unless every chi2 is finite, the final chi2 is within the
-    bound and each kernel of ``need`` launched.  Returns the result and the
-    launch counts of that run."""
+    (plus the ``extra`` facts) and raise unless every chi2 is finite, the
+    final chi2 is within ``chi2_bound`` and each kernel of ``need``
+    launched.  Returns the result and the launch counts of that run."""
     g2o.optimize_fused(p, solver, 2)                 # warm-up
     p.set_estimates({t: v.clone() for t, v in est0.items()})
-    for k in KERNELS:
-        getattr(ck, k).launches = 0
-    res = g2o.optimize_fused(p, solver, 50)
-    launches = {k: getattr(ck, k).launches for k in KERNELS}
+    for w in wrappers.values():
+        w.launches = 0
+    res = g2o.optimize_fused(p, solver, iters)
+    launches = {k: w.launches for k, w in wrappers.items()}
     chis = res["chi2_per_iteration"] + [res["chi2_final"]]
     n = res["iterations"]
     trials = sum(res["trials_per_iteration"])
@@ -246,7 +381,7 @@ def _run_lm(torch, g2o, ck, p, est0, solver, tag, need):
     # time per λ-trial (one solve + one linearize) is the rate that stays
     # comparable between runs that stop at different iterations.
     rejected_last = res["chi2_final"] == res["chi2_per_iteration"][-1]
-    phase(tag, iterations_requested=50, iterations=n,
+    phase(tag, iterations_requested=iters, iterations=n,
           accepted_iterations=n - rejected_last,
           ms_per_lm_iteration=f"{res['wall_s'] * 1e3 / max(n, 1):.3f}",
           ms_per_lambda_trial=f"{res['wall_s'] * 1e3 / max(trials, 1):.3f}",
@@ -254,21 +389,22 @@ def _run_lm(torch, g2o, ck, p, est0, solver, tag, need):
           cg_iterations_total=sum(res["cg_per_iteration"]),
           lm_trials_total=trials,
           chi2_0=f"{chis[0]:.4f}", chi2_10=f"{chis[min(10, n)]:.4f}",
-          chi2_final=f"{res['chi2_final']:.4f}", bound=f"{CHI2_BOUND:.2f}",
+          chi2_final=f"{res['chi2_final']:.4f}", bound=f"{chi2_bound:.2f}",
+          **(extra or {}),
           **{f"launches_{k}": v for k, v in launches.items()})
     if not all(math.isfinite(c) for c in chis):
         raise RuntimeError(f"non-finite chi2 on the {tag} run")
     if any(launches[k] < 1 for k in need):
         raise RuntimeError(f"a kernel was not launched on the {tag} run: "
                            f"{launches}")
-    if not res["chi2_final"] <= CHI2_BOUND:
+    if not res["chi2_final"] <= chi2_bound:
         raise RuntimeError(f"{tag}: final chi2 {res['chi2_final']} after {n} "
-                           f"iterations; need <= {CHI2_BOUND}")
+                           f"iterations; need <= {chi2_bound}")
     trace(g2o, p, est0, solver, tag, res["wall_s"] * 1e3 / max(trials, 1))
     return res, launches
 
 
-def main_path_phase(torch, g2o, ck):
+def main_path_phase(torch, g2o, wrappers):
     """The PCG (chunk2) path and the supernodal path on sphere2500; returns
     the launch counts of each path's run."""
     from g2o_tpu_torch.io import g2o_format
@@ -283,7 +419,8 @@ def main_path_phase(torch, g2o, ck):
     est0 = {t: v.clone() for t, v in p.estimates.items()}
     solver = g2o.PCGSolver(max_iter=50, tol=1e-1, precond="chunk2",
                            chunk_size=16)
-    res, launches = _run_lm(torch, g2o, ck, p, est0, solver, "main_path",
+    res, launches = _run_lm(torch, g2o, wrappers, p, est0, solver,
+                            "main_path",
                             need=("chol_batched", "solve_lower_batched"))
     n = res["iterations"]
     lt = layer_times(torch, p, solver, res["lambda_final"])
@@ -313,8 +450,8 @@ def main_path_phase(torch, g2o, ck):
           groups=len(groups), kernel_groups=sum(
               g["spb"] * 6 > 96 for g in groups),
           frontal_slots=sn._static["acc_T"])
-    res_sn, launches_sn = _run_lm(torch, g2o, ck, p, est0, sn,
-                                  "main_path_supernodal", need=KERNELS)
+    res_sn, launches_sn = _run_lm(torch, g2o, wrappers, p, est0, sn,
+                                  "main_path_supernodal", need=KERNELS[:3])
     lt = supernodal_layer_times(torch, p, sn, res_sn["lambda_final"])
     phase("layers_supernodal", **{k: f"{v:.3e}" if "residual" in k
                                   else f"{v:.3f}" for k, v in lt.items()})
@@ -365,6 +502,104 @@ def supernodal_layer_times(torch, p, solver, lam):
     return out
 
 
+def load_ba(torch, g2o):
+    """The bundle adjustment problems, float32 on the card, each with its
+    ``SchurSolver(use_pallas=True)`` set up: ``{name: (problem, solver)}``."""
+    import io as _io
+
+    from g2o_tpu_torch.io import bal
+
+    out = {}
+    for name, cfg in BA_PATHS.items():
+        t0 = time.perf_counter()
+        path = os.path.join(BAL, cfg["file"])
+        with gzip.open(path, "rt") as fh:
+            text = fh.read()
+        p = bal.load_bal_problem(_io.StringIO(text), huber=cfg["huber"],
+                                 fix_first_camera=False, dtype=torch.float32)
+        t1 = time.perf_counter()
+        solver = g2o.SchurSolver(use_pallas=True).setup(p)
+        torch.cuda.synchronize()
+        lay = solver._layout
+        phase(f"load_ba_{name}", file=cfg["file"][:40],
+              cameras=p.counts["VERTEX_CAMERA_BAL"],
+              points=p.counts["VERTEX_TRACKXYZ"], observations=p.num_edges,
+              schur_pairs=lay["n_pairs"], camera_pairs=lay["n_uniq"],
+              reduced_dim=lay["Tp"], load_seconds=f"{t1 - t0:.3f}",
+              setup_seconds=f"{time.perf_counter() - t1:.3f}")
+        out[name] = (p, solver)
+    return out
+
+
+def ba_main_path_phase(torch, g2o, wrappers, ba):
+    """The Schur path on each bundle adjustment problem; returns the launch
+    counts of each path's run."""
+    by_path = {}
+    for name, (p, solver) in ba.items():
+        cfg = BA_PATHS[name]
+        suffix = "" if name == "ladybug" else f"_{name}"
+        tag = f"main_path_ba{suffix}"
+        est0 = {t: v.clone() for t, v in p.estimates.items()}
+        res, launches = _run_lm(
+            torch, g2o, wrappers, p, est0, solver, tag, need=("segment_sum",),
+            iters=10, chi2_bound=cfg["bound"], extra=dict(
+                reference_g2o_cpu_cholesky_ms_per_iteration=(
+                    f"{cfg['ref_s_per_iter'] * 1e3:.1f}")))
+        trials = sum(res["trials_per_iteration"])
+        if launches["segment_sum"] != trials:
+            raise RuntimeError(f"{tag}: K4 launched {launches['segment_sum']} "
+                               f"times in {trials} λ-trials")
+        lt = ba_layer_times(torch, p, solver, res["lambda_final"])
+        phase(f"layers_ba{suffix}", **{
+            k: f"{v:.3e}" if "residual" in k or k.startswith("lam")
+            else f"{v:.3f}" for k, v in lt.items()})
+        by_path[tag] = launches
+    return by_path
+
+
+def ba_layer_times(torch, p, solver, lam):
+    """Time each layer of the Schur path alone at the final estimates and
+    λ (synchronized), and the relative residual
+    ``‖b − (H + λI)dx‖ / ‖b‖`` of one solve, with ``hvp_operator``, at
+    λ₀ = 1e-5·max|H_jj| of the final linearization (the λ an LM run starts
+    from): the final λ follows the last accepted step down and may lie
+    below what a float32 factorization of the free-gauge system takes."""
+    from g2o_tpu_torch.core.optimizer import _max_abs_diag
+
+    data, aux, parts = p.data, solver.aux, solver._parts
+    out = {}
+    out["linearize_ms"], lin = _wall_ms(
+        torch, lambda: p.linearize_fn(data, p.estimates))
+    out["build_B_ms"], B = _wall_ms(torch, lambda: parts["build_B"](data, lin))
+    out["landmark_inverse_ms"], Dinv = _wall_ms(
+        torch, lambda: parts["landmark_dinv"](lin, lam, aux))
+    out["pair_products_ms"], M = _wall_ms(
+        torch, lambda: parts["pair_products"](B, Dinv, aux))
+    out["k4_segment_sum_ms"], _ = _wall_ms(
+        torch, lambda: parts["aggregate"](M, aux))
+    out["build_Hpp_ms"], _ = _wall_ms(
+        torch, lambda: parts["build_Hpp"](data, lin, lam, aux))
+    out["reduced_parts_ms"], (H, bs, B, Dinv) = _wall_ms(
+        torch, lambda: solver._reduced_parts_fn(data, lin, lam, aux))
+    out["factor_solve_ms"], dxp = _wall_ms(
+        torch, lambda: parts["factor_solve"](H, bs))
+    out["back_substitute_ms"], _ = _wall_ms(
+        torch, lambda: parts["back_substitute"](lin, B, Dinv, dxp, aux))
+    out["solve_ms"], dx = _wall_ms(torch, lambda: solver.solve(data, lin, lam))
+    out["final_lam_solve_finite"] = float(bool(torch.isfinite(dx).all()))
+    lam0 = 1e-5 * float(_max_abs_diag(p, lin))
+    dx = solver.solve(data, lin, lam0)
+    hvp = p.hvp_operator(data, lin)
+    Hdx = p.join_tangent(hvp(p.split_tangent(dx))) + lam0 * dx
+    rel = float((lin.b - Hdx).norm() / lin.b.norm())
+    if not math.isfinite(rel):
+        raise RuntimeError(f"non-finite Schur solve at λ₀ = {lam0}")
+    out["rel_residual_at_lam0"] = rel
+    out["lam"] = lam
+    out["lam0"] = lam0
+    return out
+
+
 def main():
     import torch
 
@@ -372,25 +607,49 @@ def main():
     sys.path.insert(0, HERE)
     import g2o_tpu_torch as g2o
     from g2o_tpu_torch.ops import chol_kernels as ck
+    from g2o_tpu_torch.ops import segment_kernels as sk
 
     t0 = time.perf_counter()
-    ck.build()
+    ck.build()                 # every library, one nvcc each, in parallel
     ck._load()
+    sk._load()
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           flags=" ".join(ck.NVCC_FLAGS).replace(" ", "_"))
+    wrappers = {"chol_batched": ck.chol_batched,
+                "solve_lower_batched": ck.solve_lower_batched,
+                "solve_upper_batched": ck.solve_upper_batched,
+                "segment_sum": sk.segment_sum}
     times = kernel_phase(torch, ck)
-    by_path = main_path_phase(torch, g2o, ck)
+    ba = load_ba(torch, g2o)
+    seg_times = segment_kernel_phase(torch, sk, ba)
+    by_path = main_path_phase(torch, g2o, wrappers)
+    by_path.update(ba_main_path_phase(torch, g2o, wrappers, ba))
 
-    src = "g2o_tpu_torch/csrc/batched_chol.cu"
+    lay = ba["ladybug"][1]._layout
+    primary = dict(PRIMARY, segment_sum=(lay["n_pairs"], lay["dp"] ** 2,
+                                         lay["n_uniq"]))
+    times.update(seg_times)
+    chol_src = "g2o_tpu_torch/csrc/batched_chol.cu"
+    source = {"chol_batched": chol_src, "solve_lower_batched": chol_src,
+              "solve_upper_batched": chol_src,
+              "segment_sum": "g2o_tpu_torch/csrc/segment_sum.cu"}
     replaces = {"chol_batched": "g2o_tpu/ops/pallas_chol.py:89",
                 "solve_lower_batched": "g2o_tpu/ops/pallas_chol.py:188",
-                "solve_upper_batched": "g2o_tpu/ops/pallas_chol.py:194"}
+                "solve_upper_batched": "g2o_tpu/ops/pallas_chol.py:194",
+                "segment_sum": "g2o_tpu/ops/pallas_kernels.py:59"}
+
+    def shape_key(k):
+        sh = primary[k]
+        return (f"{sh[0]}x{sh[1]}->{sh[2]}" if k == "segment_sum"
+                else _shape(*sh))
+
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
+        {"name": k, "route": "cuda", "source": source[k],
+         "replaces": replaces[k],
          "launches": sum(c[k] for c in by_path.values()),
          "launches_by_path": {path: c[k] for path, c in by_path.items()},
-         "shape": _shape(*PRIMARY[k]), **times[_shape(*PRIMARY[k])][k],
-         "by_shape": {sh: t[k] for sh, t in times.items()}}
+         "shape": shape_key(k), **times[shape_key(k)][k],
+         "by_shape": {sh: t[k] for sh, t in times.items() if k in t}}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

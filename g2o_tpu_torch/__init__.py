@@ -1,14 +1,16 @@
 """g2o_tpu_torch — the PyTorch/CUDA port of g2o_tpu.
 
-Sparse nonlinear least squares on graphs (pose graphs first), with the
-Levenberg-Marquardt loop driving tensors on one device.  The JAX package
+Sparse nonlinear least squares on graphs (SE3 pose graphs and BAL bundle
+adjustment so far), with the Levenberg-Marquardt loop driving tensors on one
+device: the CUDA card unless the caller builds the problem with
+``device="cpu"``.  The JAX package
 ``g2o_tpu`` is the reference every part is tested against; this package
 imports neither it nor JAX.
 
 Importing the package registers the ported ``.g2o`` types and turns TF32
 off for float32 matrix products: the chunk and coarse preconditioner
-matrices feed Cholesky factorizations, which TF32 rounding can make
-indefinite.
+matrices and the dense and Schur systems feed Cholesky factorizations,
+which TF32 rounding can make indefinite.
 """
 
 import torch
@@ -21,9 +23,11 @@ from g2o_tpu_torch.core.graph import Graph  # noqa: E402
 from g2o_tpu_torch.core.lm_fused import optimize_fused  # noqa: E402
 from g2o_tpu_torch.core.optimizer import (LevenbergMarquardt,  # noqa: E402
                                           SparseOptimizer)
-from g2o_tpu_torch.core.solvers.pcg import PCGSolver  # noqa: E402
+from g2o_tpu_torch.core.solvers import (DenseSolver, PCGSolver,  # noqa: E402
+                                        SchurSolver)
 from g2o_tpu_torch.core.solvers.supernodal import (  # noqa: E402
     SupernodalCholeskySolver)
 
 __all__ = ["Graph", "SparseOptimizer", "LevenbergMarquardt",
-           "optimize_fused", "PCGSolver", "SupernodalCholeskySolver"]
+           "optimize_fused", "DenseSolver", "PCGSolver", "SchurSolver",
+           "SupernodalCholeskySolver"]

@@ -2,10 +2,11 @@
 
 Plays the role of the reference ``HyperGraph``/``OptimizableGraph``: vertices
 are added by id, edges connect vertices and carry measurement, information
-and robust kernel, vertices can be fixed (gauge), edges have a level and the
-fork's per-edge active flag.  :meth:`Graph.compile` freezes the records into
-a structure-of-arrays :class:`~g2o_tpu_torch.core.problem.Problem` of
-tensors on an explicit device.
+and robust kernel, vertices can be fixed (gauge) or marginalized (eliminated
+by a Schur solver), edges have a level and the fork's per-edge active flag.
+:meth:`Graph.compile` freezes the records into a structure-of-arrays
+:class:`~g2o_tpu_torch.core.problem.Problem` of tensors on the CUDA card,
+or on the CPU when the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ class _VertexRec:
     vtype: VertexType
     estimate: np.ndarray
     fixed: bool = False
+    marginalized: bool = False
 
 
 @dataclasses.dataclass
@@ -51,7 +53,8 @@ class Graph:
 
     # -- vertices ----------------------------------------------------------
 
-    def add_vertex(self, vid: int, vtype, estimate, *, fixed=False):
+    def add_vertex(self, vid: int, vtype, estimate, *, fixed=False,
+                   marginalized=False):
         if isinstance(vtype, str):
             vtype = self.registry.vertex_types[vtype]
         est = np.asarray(estimate, dtype=np.float64).reshape(-1)
@@ -61,7 +64,8 @@ class Graph:
                 f"{vtype.name}, got {est.shape[0]}")
         if vid in self._vertices:
             raise ValueError(f"duplicate vertex id {vid}")
-        self._vertices[vid] = _VertexRec(vid, vtype, est, bool(fixed))
+        self._vertices[vid] = _VertexRec(vid, vtype, est, bool(fixed),
+                                         bool(marginalized))
         return vid
 
     def vertex(self, vid: int) -> _VertexRec:
@@ -69,6 +73,9 @@ class Graph:
 
     def set_fixed(self, vid: int, fixed: bool = True):
         self._vertices[vid].fixed = bool(fixed)
+
+    def set_marginalized(self, vid: int, marginalized: bool = True):
+        self._vertices[vid].marginalized = bool(marginalized)
 
     @property
     def num_vertices(self):
@@ -157,11 +164,12 @@ class Graph:
 
     # -- compile -----------------------------------------------------------
 
-    def compile(self, *, dtype=None, device="cpu", level: int = 0,
+    def compile(self, *, dtype=None, device="cuda", level: int = 0,
                 pad_edges_to_multiple: int = 1,
                 assembly_precision: str = "highest"):
         """Freeze the edges of ``level`` into a :class:`Problem` of
-        ``dtype`` tensors on ``device`` (float64 when ``dtype`` is None)."""
+        ``dtype`` tensors on ``device`` (float64 when ``dtype`` is None);
+        without a CUDA card the caller must pass ``device="cpu"``."""
         from g2o_tpu_torch.core.problem import compile_graph
 
         return compile_graph(self, dtype=dtype, device=device, level=level,

@@ -135,12 +135,11 @@ class SparseOptimizer:
 
     def __init__(self, problem, algorithm: Optional[OptimizationAlgorithm] = None,
                  solver=None, verbose: bool = False):
-        from g2o_tpu_torch.core.solvers.pcg import PCGSolver
+        from g2o_tpu_torch.core.solvers.dense import DenseSolver
 
         self.problem = problem
         self.algorithm = algorithm or LevenbergMarquardt()
-        # the JAX package defaults to its dense solver, which is not ported
-        self.solver = (solver or PCGSolver()).setup(problem)
+        self.solver = (solver or DenseSolver()).setup(problem)
         self.verbose = verbose
         self.current_chi2 = None
         self.batch_statistics: list[BatchStatistics] = []

@@ -9,8 +9,12 @@ port of the non-bucketed paths of ``g2o_tpu/core/problem.py``.
   otherwise.  Edges are independent, so a cotangent row applied to the
   whole batch yields that row of every edge's Jacobian;
 * the gradient ``b`` and the per-vertex diagonal blocks of ``H`` are
-  accumulated with ``index_add_``; ``H`` itself is never formed: PCG uses
+  accumulated with ``index_add_``; PCG never forms ``H``: it uses
   :meth:`Problem.hvp_operator` (gather, ``WJ·v``, ``Jcatᵀz``, ``index_add_``).
+  The dense solver assembles it with :meth:`Problem.dense_hessian_fn`.
+
+The entry points build on the CUDA card unless the caller passes
+``device="cpu"``; without a card they raise.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ class ProblemData(NamedTuple):
     edges: dict            # edge name -> EdgeBatchData
     fixed: dict            # vertex-type name -> (N_t,) bool
     free_mask: dict        # edge name -> (E, k): 0.0 where the slot's vertex is fixed
+    offsets: dict          # vertex-type name -> (N_t,) int64 flat tangent offset
+    fixed_flat: torch.Tensor  # (T,) 1.0 on the tangent slots of fixed vertices
 
 
 class LinearizedSystem(NamedTuple):
@@ -58,12 +64,15 @@ class LinearizedSystem(NamedTuple):
 
 
 class Problem:
-    """Compiled problem.  Estimates are a ``{type name: (N_t, rep)}`` dict."""
+    """Compiled problem.  Estimates are a ``{type name: (N_t, rep)}`` dict;
+    ``marginalized`` is a host-side ``{type name: (N_t,) bool}`` numpy dict
+    (the vertices a Schur solver eliminates)."""
 
     def __init__(self, vertex_types, counts, edge_types, data: ProblemData,
-                 estimates: dict, vid_index: dict, type_bases: dict,
-                 total_dim: int, dtype, device, uniform_kernel=None,
-                 assembly_precision: str = "highest", n_active_edges=None):
+                 estimates: dict, marginalized: dict, vid_index: dict,
+                 type_bases: dict, total_dim: int, dtype, device,
+                 uniform_kernel=None, assembly_precision: str = "highest",
+                 n_active_edges=None):
         # accepted for API parity with the JAX package: the port assembles
         # in full precision either way (TF32 is off package-wide)
         if assembly_precision not in ("highest", "default"):
@@ -75,6 +84,7 @@ class Problem:
         self.edge_types = edge_types
         self.data = data
         self.estimates = estimates
+        self.marginalized = marginalized
         self.vid_index = vid_index          # vid -> (type name, local index)
         self.type_bases = type_bases        # type name -> flat tangent base offset
         self.total_dim = int(total_dim)
@@ -277,6 +287,33 @@ class Problem:
 
         return hvp
 
+    def dense_hessian_fn(self, data: ProblemData, lin: LinearizedSystem):
+        """The full dense ``(T, T)`` tangent-space Hessian ``Σ JᵀWJ`` (the
+        dense solver's system), with a unit diagonal on fixed slots so the
+        system stays positive definite with ``dx = 0`` there."""
+        T = self.total_dim
+        H = torch.zeros(T * T, dtype=self.dtype, device=self.device)
+        for name, et in self.edge_types.items():
+            vidx = data.edges[name].vidx
+            Js = self.edge_jacs(lin, name)
+            W = self.edge_weights(lin, name)
+            idxs = [data.offsets[vt.name][vidx[:, s]][:, None]
+                    + torch.arange(vt.tangent_dim, device=self.device)
+                    for s, vt in enumerate(et.vertex_types)]
+            for i in range(len(Js)):
+                WJi = torch.einsum("ers,erd->esd", W, Js[i])
+                for j in range(i, len(Js)):
+                    Hij = torch.einsum("esd,esf->edf", WJi, Js[j])
+                    # flat indices; index_add_ accumulates duplicates (one
+                    # vertex in many edges, or in both slots of one edge)
+                    flat = idxs[i][:, :, None] * T + idxs[j][:, None, :]
+                    H.index_add_(0, flat.reshape(-1), Hij.reshape(-1))
+                    if j != i:
+                        flat_t = idxs[j][:, :, None] * T + idxs[i][:, None, :]
+                        H.index_add_(0, flat_t.reshape(-1),
+                                     Hij.transpose(1, 2).reshape(-1))
+        return H.reshape(T, T) + torch.diag(data.fixed_flat)
+
     def apply_update_fn(self, data: ProblemData, estimates, dx):
         """x ⊞ dx per vertex type, fixed vertices pinned — reference
         ``SparseOptimizer::update`` (``g2o/core/sparse_optimizer.cpp:441``)."""
@@ -302,30 +339,47 @@ def _resolve(types, name):
         raise ValueError(f"unregistered type {name!r}") from None
 
 
+def _device(device):
+    """The device to build on; raises for a CUDA device without a card
+    (never moves to the CPU quietly)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device=\"cpu\" to build "
+                           "the problem on the CPU")
+    return device
+
+
 def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
                   pad_edges_to_multiple=1, assembly_precision="highest",
                   registry=None):
     """Shared tail of :func:`build_problem` and :func:`problem_from_numpy`:
-    ``vertex_arrays`` is ``{type name: (estimates (N, rep), fixed (N,))}``
-    in internal vertex order, ``edge_arrays`` is ``{edge name: {field:
-    array}}`` with LOCAL vertex indices in ``vidx``."""
+    ``vertex_arrays`` is ``{type name: (estimates (N, rep), fixed (N,),
+    marginalized (N,))}`` in internal vertex order, ``edge_arrays`` is
+    ``{edge name: {field: array}}`` with LOCAL vertex indices in ``vidx``."""
     registry = registry or REGISTRY
     dtype = torch.float64 if dtype is None else dtype
-    device = torch.device(device)
+    device = _device(device)
     vertex_types, counts, type_bases, estimates, fixed, fixed_np = \
         {}, {}, {}, {}, {}, {}
+    marginalized, offsets = {}, {}
+    fixed_flat = []
     base = 0
-    for t, (est, fx) in vertex_arrays.items():
+    for t, (est, fx, mg) in vertex_arrays.items():
         vt = _resolve(registry.vertex_types, t)
         est = np.asarray(est, dtype=np.float64).reshape(-1, vt.rep_dim)
         fx = np.asarray(fx, dtype=bool).reshape(-1)
         vertex_types[t] = vt
         counts[t] = est.shape[0]
         type_bases[t] = base
+        offsets[t] = torch.as_tensor(
+            base + np.arange(counts[t], dtype=np.int64) * vt.tangent_dim,
+            device=device)
+        fixed_flat.append(np.repeat(fx, vt.tangent_dim))
         base += counts[t] * vt.tangent_dim
         estimates[t] = torch.tensor(est, dtype=dtype, device=device)
         fixed[t] = torch.tensor(fx, device=device)
         fixed_np[t] = fx
+        marginalized[t] = np.asarray(mg, dtype=bool).reshape(-1).copy()
 
     m = max(int(pad_edges_to_multiple), 1)
     edge_types, edges, free_mask, uniform_kernel = {}, {}, {}, {}
@@ -367,21 +421,26 @@ def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
             active=ten(a["active"], torch.bool),
             param=ten(a["param"]),
         )
-    data = ProblemData(edges=edges, fixed=fixed, free_mask=free_mask)
+    data = ProblemData(
+        edges=edges, fixed=fixed, free_mask=free_mask, offsets=offsets,
+        fixed_flat=torch.as_tensor(
+            np.concatenate(fixed_flat) if fixed_flat else np.zeros(0),
+            dtype=dtype, device=device))
     return Problem(vertex_types, counts, edge_types, data, estimates,
-                   vid_index, type_bases, base, dtype, device,
+                   marginalized, vid_index, type_bases, base, dtype, device,
                    uniform_kernel=uniform_kernel,
                    assembly_precision=assembly_precision,
                    n_active_edges=n_active)
 
 
-def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cpu",
+def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
                   pad_edges_to_multiple: int = 1,
                   assembly_precision: str = "highest",
                   registry=None) -> Problem:
     """Build a :class:`Problem` from raw numpy blocks keyed by type name:
 
-    ``vertex_blocks``: ``{name: (vids (N,), estimates (N, rep), fixed (N,))}``;
+    ``vertex_blocks``: ``{name: (vids (N,), estimates (N, rep), fixed (N,),
+    marginalized (N,))}``;
     ``edge_blocks``: ``{name: (vids (E, k) raw ids, meas (E, m), info (E, r, r),
     kernel (E,), delta (E,), active (E,), param (E, p))}``.
 
@@ -389,11 +448,12 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cpu",
     mapping of the reference (``sparse_optimizer.cpp:168,504``) and of the
     JAX package, so both give the same tangent layout."""
     vertex_arrays, sorted_vids, vid_index = {}, {}, {}
-    for t, (vids, est, fx) in vertex_blocks.items():
+    for t, (vids, est, fx, mg) in vertex_blocks.items():
         order = np.argsort(np.asarray(vids), kind="stable")
         sv = np.asarray(vids, dtype=np.int64)[order]
         vertex_arrays[t] = (np.asarray(est, dtype=np.float64)[order],
-                            np.asarray(fx, dtype=bool)[order])
+                            np.asarray(fx, dtype=bool)[order],
+                            np.asarray(mg, dtype=bool)[order])
         sorted_vids[t] = sv
         vid_index.update(zip(sv.tolist(), ((t, i) for i in range(len(sv)))))
     registry = registry or REGISTRY
@@ -424,21 +484,22 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cpu",
                          registry=registry)
 
 
-def problem_from_numpy(vertices, edges, *, dtype=None, device="cpu",
+def problem_from_numpy(vertices, edges, *, dtype=None, device="cuda",
                        vid_index=None, registry=None) -> Problem:
     """A :class:`Problem` from arrays that are already in compiled form —
-    e.g. a JAX ``Problem``'s ``p.estimates[t]``, ``p.data.fixed[t]`` and
-    ``p.data.edges[name]`` turned to numpy — so both packages optimize
-    exactly the same arrays.
+    e.g. a JAX ``Problem``'s ``p.estimates[t]``, ``p.data.fixed[t]``,
+    ``p.marginalized[t]`` and ``p.data.edges[name]`` turned to numpy — so
+    both packages optimize exactly the same arrays.
 
-    ``vertices``: ``{type name: (estimates (N, rep), fixed (N,))}`` in the
-    tangent layout order; ``edges``: ``{edge name: {vidx, meas, info,
-    kernel, delta, active, param}}`` with local vertex indices."""
+    ``vertices``: ``{type name: (estimates (N, rep), fixed (N,),
+    marginalized (N,))}`` in the tangent layout order; ``edges``: ``{edge
+    name: {vidx, meas, info, kernel, delta, active, param}}`` with local
+    vertex indices."""
     return _make_problem(vertices, edges, vid_index=vid_index or {},
                          dtype=dtype, device=device, registry=registry)
 
 
-def compile_graph(graph, *, dtype=None, device="cpu", level: int = 0,
+def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
                   pad_edges_to_multiple: int = 1,
                   assembly_precision: str = "highest") -> Problem:
     """Freeze a host :class:`~g2o_tpu_torch.core.graph.Graph` — the analogue
@@ -450,7 +511,8 @@ def compile_graph(graph, *, dtype=None, device="cpu", level: int = 0,
     vertex_blocks = {
         t: (np.array([r.vid for r in recs], dtype=np.int64),
             np.stack([r.estimate for r in recs]),
-            np.array([r.fixed for r in recs], dtype=bool))
+            np.array([r.fixed for r in recs], dtype=bool),
+            np.array([r.marginalized for r in recs], dtype=bool))
         for t, recs in by_type.items()}
 
     erecs: dict[str, list] = {}

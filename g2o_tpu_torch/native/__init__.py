@@ -1,12 +1,13 @@
 """Host-side native code — the symbolic block-Cholesky analysis.
 
-``symbolic_analysis`` runs ``g2o_tpu/native/symchol.cpp`` (fill-reducing
-nested-dissection ordering, elimination tree, exact column structure and
-etree depths; the analogue of CSparse's ``cs_etree``/``cs_ereach``).  The
-source is the JAX package's own file, read by path and compiled on its own
-with ``g++`` at first use into ``g2o_tpu_torch/_build/``; this package never
-imports ``g2o_tpu``.  Using the same source keeps the ordering, and with it
-every supernodal schedule, identical to the JAX package's.
+``symbolic_analysis`` runs ``symchol.cpp`` (fill-reducing nested-dissection
+ordering, elimination tree, exact column structure and etree depths; the
+analogue of CSparse's ``cs_etree``/``cs_ereach``), compiled on its own with
+``g++`` at first use into ``g2o_tpu_torch/_build/``.  The source in this
+directory is a byte-identical copy of the JAX package's
+``g2o_tpu/native/symchol.cpp`` (a CPU test holds the two equal): the same
+source keeps the ordering, and with it every supernodal schedule, identical
+to the JAX package's.
 
 When no compiler is found (or the build fails) ``symbolic_analysis``
 returns ``None`` and the caller takes its pure-Python path, as the JAX
@@ -25,8 +26,7 @@ import sys
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG), "g2o_tpu", "native",
-                      "symchol.cpp")
+SOURCE = os.path.join(_PKG, "native", "symchol.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 

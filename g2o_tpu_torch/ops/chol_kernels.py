@@ -5,7 +5,9 @@ chol_batched``, ``::solve_lower_batched`` and ``::solve_upper_batched``.
 The kernels are CUDA C++ in ``g2o_tpu_torch/csrc/batched_chol.cu`` (its
 header says what bounds them and how they are laid out).  They are built
 with ``nvcc`` at first use into ``g2o_tpu_torch/_build/`` and loaded with
-``ctypes``.  Beside each wrapper is its plain PyTorch version:
+``ctypes``; :func:`build` is the package's one build helper and also builds
+the segment-sum library of ``ops/segment_kernels.py``.  Beside each wrapper
+is its plain PyTorch version:
 
 * on a CPU tensor the wrapper returns the plain version (the CPU tests run
   it);
@@ -26,7 +28,9 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
-SOURCE = os.path.join(_PKG, "csrc", "batched_chol.cu")
+# library name -> CUDA source; each builds into lib<name>_<hash>.so
+SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+           for name in ("batched_chol", "segment_sum")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -44,30 +48,48 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build() -> str:
-    """Compile the kernel library (once per source content) and return
-    its path.  The file name carries a hash of the source and flags, so an
-    edited source is rebuilt."""
-    with open(SOURCE, "rb") as fh:
+def _target(name):
+    """Path of library ``name``'s build; the file name carries a hash of
+    the source and flags, so an edited source is rebuilt."""
+    with open(SOURCES[name], "rb") as fh:
         src = fh.read()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libbatched_chol_{tag}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+
+
+def build(*names) -> list:
+    """Compile the named kernel libraries (all of :data:`SOURCES` when none
+    is named) that are not built yet, one ``nvcc`` per source, all started
+    together; return their paths in order."""
+    names = names or tuple(SOURCES)
+    outs, procs = [], []
+    for name in names:
+        out = _target(name)
+        outs.append(out)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs.append((out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for out, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}) for "
+                          f"{os.path.basename(out)}:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = ctypes.CDLL(build("batched_chol")[0])
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for name in ("g2o_chol_batched_f32", "g2o_chol_batched_f64"):
             fn = getattr(lib, name)

@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the K1/K2/K3 kernels against their plain PyTorch
-versions, and the PCG and supernodal paths on the card against the same
-paths on the CPU.
+"""The port on a CUDA card: the K1/K2/K3/K4 kernels against their plain
+PyTorch versions, and the PCG, supernodal and Schur (BAL) paths on the card
+against the same paths on the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
 This file imports neither JAX nor ``g2o_tpu``, so it also runs on a machine
@@ -9,17 +9,26 @@ tests/test_torch_cuda.py`` (the repository's ``conftest.py`` imports JAX).
 
 Tolerances: max|Δ| ≤ 2e-5·max|ref| in float32 and ≤ 1e-11·max|ref| in
 float64 for the kernels (their summation order differs from cuSOLVER's and
-cuBLAS's); chi2 trajectories to rtol 1e-6 (float64, the kernels on the
-coarse level or the supernodal panels on the card, their plain versions on
+cuBLAS's, and K4's atomics add in a run-dependent order); chi2 trajectories
+to rtol 1e-6 (float64, the kernels on the coarse level, the supernodal
+panels or the Schur pair aggregation on the card, their plain versions on
 the CPU)."""
+
+import gzip
+import io
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import g2o_tpu_torch
-from g2o_tpu_torch.ops import chol_kernels
+from g2o_tpu_torch.io import bal
+from g2o_tpu_torch.ops import chol_kernels, segment_kernels
 from g2o_tpu_torch.sim.generators import create_sphere
+
+C20 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "data", "bal_cache", "bal-C20-P800-K5-N1-S0.txt.gz")
 
 
 def _need_card():
@@ -110,4 +119,63 @@ def test_supernodal_on_card_matches_cpu():
         chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
     assert launches[0] == (0, 0, 0)
     assert min(launches[1]) > 0
+    np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-11)])
+@pytest.mark.parametrize("n,d,s,sort,lo,hi", [
+    (1000, 81, 37, False, 0, 37), (5000, 16, 300, False, 0, 300),
+    (100, 128, 8, False, 0, 8), (7, 4, 2, False, 0, 2),
+    (700, 200, 37, False, -3, 42),          # unsorted, out-of-range ids
+    (175000, 81, 2401, True, 0, 2401)])     # the ladybug Schur path's shape
+def test_segment_sum_matches_plain_on_card(n, d, s, sort, lo, hi, dtype, tol):
+    _need_card()
+    rng = np.random.default_rng(n)
+    seg = rng.integers(lo, hi, size=n).astype(np.int32)
+    if sort:
+        seg.sort()
+    vals = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype,
+                           device="cuda")
+    ids = torch.as_tensor(seg, device="cuda")
+    before = segment_kernels.segment_sum.launches
+    got = segment_kernels.segment_sum(vals, ids, s)
+    want = segment_kernels.segment_sum_plain(vals, ids, s)
+    torch.cuda.synchronize()
+    assert segment_kernels.segment_sum.launches == before + 1
+    assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_segment_sum_rejects_bad_input_on_card():
+    _need_card()
+    vals = torch.ones((4, 3), device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        segment_kernels.segment_sum(vals, torch.zeros(4, dtype=torch.int64,
+                                                      device="cuda"), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_kernels.segment_sum(torch.ones((3, 4), device="cuda").T,
+                                    torch.zeros(4, dtype=torch.int32,
+                                                device="cuda"), 2)
+
+
+@pytest.mark.cuda
+def test_ba_schur_on_card_matches_cpu():
+    """10 LM iterations on the C20 BAL file, float64: K4 launched once per
+    λ-trial on the card, never on the CPU."""
+    _need_card()
+    with gzip.open(C20, "rt") as fh:
+        text = fh.read()
+    chis, launches, trials = [], [], []
+    for device in ("cpu", "cuda"):
+        p = bal.load_bal_problem(io.StringIO(text), huber=1.0,
+                                 device=device)
+        before = segment_kernels.segment_sum.launches
+        res = g2o_tpu_torch.optimize_fused(
+            p, g2o_tpu_torch.SchurSolver(use_pallas=True), 10)
+        launches.append(segment_kernels.segment_sum.launches - before)
+        trials.append(sum(res["trials_per_iteration"]))
+        chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
+    assert launches == [0, trials[1]]
     np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)

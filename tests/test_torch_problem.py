@@ -22,7 +22,8 @@ RTOL = 1e-9
 
 def port_problem(jp, dtype=torch.float64, device="cpu"):
     """The port's Problem over a JAX Problem's arrays."""
-    vertices = {t: (np.asarray(jp.estimates[t]), np.asarray(jp.data.fixed[t]))
+    vertices = {t: (np.asarray(jp.estimates[t]), np.asarray(jp.data.fixed[t]),
+                    np.asarray(jp.marginalized[t]))
                 for t in jp.vertex_types}
     edges = {name: {f: np.asarray(getattr(b, f)) for f in b._fields}
              for name, b in jp.data.edges.items()}
@@ -148,7 +149,7 @@ def test_prior_edge_forward_mode_matches():
                     "40"]) + "\n")
     jg, tg = jio.loads(text), tio.loads(text)
     jp = jg.compile()
-    tp = tg.compile(dtype=torch.float64)
+    tp = tg.compile(dtype=torch.float64, device="cpu")
     assert set(tp.edge_types) == {"EDGE_SE3:QUAT", "EDGE_SE3_PRIOR"}
     jl = jp.linearize_jit(jp.data, jp.estimates)
     tl = tp.linearize_fn(tp.data, tp.estimates)
@@ -191,7 +192,8 @@ def test_build_problem_rejects_unknown_vertex():
     est = np.tile([0, 0, 0, 0, 0, 0, 1.0], (2, 1))
     with pytest.raises(ValueError, match="unknown vertex id 7"):
         build_problem(
-            {"VERTEX_SE3:QUAT": (np.array([0, 1]), est, np.zeros(2, bool))},
+            {"VERTEX_SE3:QUAT": (np.array([0, 1]), est, np.zeros(2, bool),
+                                 np.zeros(2, bool))},
             {"EDGE_SE3:QUAT": (np.array([[0, 7]]), est[:1], np.eye(6)[None],
                                np.zeros(1), np.ones(1), np.ones(1, bool),
-                               np.zeros((1, 0)))})
+                               np.zeros((1, 0)))}, device="cpu")

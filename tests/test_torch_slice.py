@@ -77,7 +77,7 @@ def test_host_loop_lm_matches_fused(text):
     same rules: with stateless solves their trajectories agree."""
     tg = tio.loads(text)
     tg.set_robust_kernel("Huber", 1.0)
-    tp = tg.compile(dtype=torch.float64)
+    tp = tg.compile(dtype=torch.float64, device="cpu")
     est0 = {t: v.clone() for t, v in tp.estimates.items()}
     opt = g2o_tpu_torch.SparseOptimizer(
         tp, algorithm=g2o_tpu_torch.LevenbergMarquardt(),
@@ -162,21 +162,27 @@ def test_port_imports_neither_jax_nor_g2o_tpu():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['g2o_tpu'] = None; import g2o_tpu_torch, "
             "g2o_tpu_torch.io.g2o_format, g2o_tpu_torch.sim.generators, "
-            "g2o_tpu_torch.ops.chol_kernels")
+            "g2o_tpu_torch.ops.chol_kernels, g2o_tpu_torch.io.bal, "
+            "g2o_tpu_torch.ops.segment_kernels, g2o_tpu_torch.native, "
+            "g2o_tpu_torch.core.solvers.schur, chip_smoke")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, files in os.walk(os.path.join(ROOT, "g2o_tpu_torch")):
         if "_build" in dirs:        # build output, not the package's source
             dirs.remove("_build")
-        for f in files:
-            if f.endswith((".py", ".cu")):
-                with open(os.path.join(dirpath, f)) as fh:
-                    src = fh.read()
-                assert not re.search(
-                    r"^\s*(import|from)\s+(jax|g2o_tpu)\b", src, re.M), f
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith((".py", ".cu"))]
+    for path in paths:
+        with open(path) as fh:
+            src = fh.read()
+        assert not re.search(
+            r"^\s*(import|from)\s+(jax|g2o_tpu)\b", src, re.M), path
+        # no path into the JAX package's tree is built, opened or compiled
+        assert not re.search(r"[\"']g2o_tpu[\"']", src), path
 
 
 def test_tf32_is_off():
@@ -188,7 +194,7 @@ def test_cpu_tensors_never_launch_kernels(text):
     before = (chol_kernels.chol_batched.launches,
               chol_kernels.solve_lower_batched.launches)
     tg = tio.loads(text)
-    tp = tg.compile(dtype=torch.float64)
+    tp = tg.compile(dtype=torch.float64, device="cpu")
     g2o_tpu_torch.optimize_fused(tp, g2o_tpu_torch.PCGSolver(
         max_iter=20, tol=1e-3, precond="chunk2", chunk_size=4), 2)
     assert (chol_kernels.chol_batched.launches,

@@ -61,7 +61,7 @@ def text():
 def _both(text, *, unfix=False):
     """The JAX and the port problem from one ``.g2o`` text (Huber 1.0)."""
     out = []
-    for io, kw in ((jio, {}), (tio, dict(dtype=torch.float64))):
+    for io, kw in ((jio, {}), (tio, dict(dtype=torch.float64, device="cpu"))):
         g = io.loads(text)
         g.set_robust_kernel("Huber", 1.0)
         if unfix:
@@ -74,7 +74,7 @@ def _both(text, *, unfix=False):
 
 def test_schedule_identical_to_jax_on_sphere2500():
     jp = jio.load(SPHERE2500).compile()
-    tp = tio.load(SPHERE2500).compile(dtype=torch.float64)
+    tp = tio.load(SPHERE2500).compile(dtype=torch.float64, device="cpu")
     n = jp.counts["VERTEX_SE3:QUAT"]
     pairs = _pairs(jp)
     np.testing.assert_array_equal(_pairs(tp), pairs)
