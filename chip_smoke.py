@@ -37,7 +37,27 @@ exits non-zero without printing a result:
    (Cholesky) chi2 after 10, every chi2 finite, and K4 launched once per
    λ-trial; then the time per layer (linearize, the B blocks, the pair
    products, K4, the Hpp build, the dense factor and solve, the
-   back-substitution) and the relative residual of one solve.
+   back-substitution) and the relative residual of one solve;
+7. kernels, gather and segment sum: the two kernels of
+   ``g2o_tpu_torch/csrc/gather_segment.cu`` (the port of K5–K10) against
+   their plain versions, float32 and float64, row-major and dims-major, at
+   the Pallas test shape, unsorted shapes with out-of-range ids (among them
+   20,000 and 70,000 segments, on each side of the segment sum's
+   shared-memory limit), and the implicit Schur paths' shapes with their solvers' own ids (the Venice
+   camera ids; the runtime-bucketed ladybug ids with their sentinel);
+   timed beside the plain version and one ``index_select``/``index_add``
+   at those path shapes;
+8. main paths, implicit Schur: ``ImplicitSchurSolver`` with ``bench.py``'s
+   settings, 10 LM iterations after a warm-up, float32, every camera free:
+   ladybug, Venice (``bal-C800-P150000-K6``, with gauge deflation) and
+   stress loaded with ``bucket_landmarks=True`` (the dims-major layout),
+   and ladybug without it (``layout="bucketed"``, the runtime-bucketed
+   layout); the chi2 after 10 iterations must be within 1% of the
+   reference g2o's PCG chi2 after 10, every chi2 finite, and the gather and
+   segment-sum kernels launched; then the time per layer (linearize, the
+   per-trial setup, one CG iteration, the back-substitution) and the
+   relative residual of one solve; on the runtime-bucketed problem also the
+   difference from the explicit solver's step.
 
 Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
@@ -83,6 +103,39 @@ BA_PATHS = {
              "n_points30000-outlier_fraction0.07-pixel_noise1-seed0.txt.gz",
         huber=1.0, bound=13338643.1 * 1.01, ref_s_per_iter=0.6061),
 }
+LADYBUG, STRESS = BA_PATHS["ladybug"]["file"], BA_PATHS["stress"]["file"]
+# the implicit Schur paths: file, Huber width, whether the file is loaded
+# with bucket_landmarks, bench.py's solver settings, gauge deflation, the
+# reference g2o's chi2 after 10 LM iterations with its PCG solver
+# (baseline_measured.json ladybug_ba / venice_ba .chi2_after_10_iters,
+# bal_stress.chi2_after_10_iters) +1%, and its CPU ms per LM iteration
+# with PCG (.sec_per_lm_iter_pcg)
+IMPLICIT_PATHS = {
+    "": dict(file=LADYBUG, huber=0.0, bucket=True, deflate=False,
+             solver=dict(max_iter=100, tol=1e-2, precond="jacobi",
+                         matvec_precision="highest"),
+             bound=48790.33 * 1.01, ref_ms=41.6),
+    "_venice": dict(file="bal-C800-P150000-K6-N1-S0.txt.gz", huber=0.0,
+                    bucket=True, deflate=True,
+                    solver=dict(max_iter=100, tol=1e-2, precond="jacobi",
+                                matvec_precision="auto"),
+                    bound=1343704.04 * 1.01, ref_ms=7740.0),
+    "_stress": dict(file=STRESS, huber=1.0, bucket=True, deflate=False,
+                    solver=dict(max_iter=100, tol=1e-2,
+                                precond="schur_jacobi",
+                                matvec_precision="highest"),
+                    bound=13338682.04 * 1.01, ref_ms=256.2),
+    "_runtime": dict(file=LADYBUG, huber=0.0, bucket=False, deflate=False,
+                     solver=dict(max_iter=100, tol=1e-2, precond="jacobi",
+                                 layout="bucketed"),
+                     bound=48790.33 * 1.01, ref_ms=41.6),
+}
+ONEHOT = ("onehot_gather", "onehot_gather_t", "onehot_scatter_add",
+          "onehot_scatter_add_t")
+# the JSON line's entry of each new kernel, and the wrappers that launch it
+NEW_KERNELS = {"onehot_gather": ("onehot_gather", "onehot_gather_t"),
+               "onehot_scatter_add": ("onehot_scatter_add",
+                                      "onehot_scatter_add_t")}
 # published H100 SXM peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -149,9 +202,12 @@ def bound(name, shape, width=4):
     ``name`` at ``shape`` in a ``width``-byte float type — the larger of
     the bytes it must move (each input read once, each output written once)
     over the memory rate, and its operations over the float32 rate."""
-    if name == "segment_sum":
+    if name in ("segment_sum", "onehot_scatter_add", "onehot_gather"):
+        # (N, D) rows and N int32 ids against an (S, D) table; the sum
+        # adds N*D values, the gather only moves them
         N, D, S = shape
-        nbytes, ops = (N * D + S * D) * width + N * 4, N * D
+        nbytes = (N * D + S * D) * width + N * 4
+        ops = 0 if name == "onehot_gather" else N * D
     else:
         S, n, m = shape
         if name == "chol_batched":
@@ -600,6 +656,242 @@ def ba_layer_times(torch, p, solver, lam):
     return out
 
 
+def load_implicit(torch, g2o):
+    """The implicit Schur problems, float32 on the card, each with its
+    solver set up: ``{suffix: (problem, solver, initial estimates)}``."""
+    import io as _io
+
+    from g2o_tpu_torch.io import bal
+    from g2o_tpu_torch.types.bal import bal_gauge_basis
+
+    out = {}
+    for suffix, cfg in IMPLICIT_PATHS.items():
+        t0 = time.perf_counter()
+        with gzip.open(os.path.join(BAL, cfg["file"]), "rt") as fh:
+            text = fh.read()
+        p = bal.load_bal_problem(_io.StringIO(text), huber=cfg["huber"],
+                                 fix_first_camera=False, dtype=torch.float32,
+                                 bucket_landmarks=cfg["bucket"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kw = dict(cfg["solver"])
+        if cfg["deflate"]:
+            kw["deflate_basis"] = bal_gauge_basis(p)
+        solver = g2o.ImplicitSchurSolver(**kw).setup(p)
+        torch.cuda.synchronize()
+        lay = solver._layout
+        phase(f"load_ba_implicit{suffix}", file=cfg["file"][:40],
+              cameras=p.counts["VERTEX_CAMERA_BAL"],
+              points=p.counts["VERTEX_TRACKXYZ"], observations=p.num_edges,
+              layout=lay["form"], buckets=sum(lay["buckets"].values()),
+              slab_rows=sum(lay["slab_rows"].values()),
+              load_seconds=f"{t1 - t0:.3f}",
+              setup_seconds=f"{time.perf_counter() - t1:.3f}")
+        out[suffix] = (p, solver, {t: v.clone()
+                                   for t, v in p.estimates.items()})
+    return out
+
+
+def _path_ids(implicit):
+    """``{kind: (ids, S)}``: the camera ids the implicit paths hand the
+    gather and segment-sum kernels — the Venice file's slab-ordered ids
+    and the runtime-bucketed ladybug ids, whose padded slots carry the
+    sentinel ``S``."""
+    name = "EDGE_OBSERVATION_BAL"
+    p, _, _ = implicit["_venice"]
+    nb = p.bucket_specs[name].n_rows
+    venice = (p.data.plans[name]["ids32"][0, :nb], p.counts[
+        "VERTEX_CAMERA_BAL"])
+    p, solver, _ = implicit["_runtime"]
+    runtime = (solver.aux[name]["cam"], p.counts["VERTEX_CAMERA_BAL"])
+    return {"venice": venice, "ladybug_runtime": runtime}
+
+
+def onehot_kernel_phase(torch, oh, implicit):
+    """The gather and segment-sum kernels against their plain versions on
+    the card, float32 and float64, in both layouts, at the Pallas test
+    shape (ids up to S+3), unsorted shapes with ids in [-3, S+5) and the
+    implicit paths' shapes with their solvers' ids (D = 9 for the camera
+    states, b and the CG vectors, D = 81 for the camera diagonal blocks);
+    at the path shapes in float32 times kernel, plain version and one
+    ``index_select`` / ``index_add`` into ``S+1`` rows, in turns.  Returns
+    ``{shape: {kernel: {...}}}``."""
+    rng = np.random.default_rng(2)
+    path_ids = _path_ids(implicit)
+    # the segment sum keeps a shared accumulator while one column of S
+    # values fits 96 KB (S <= 24576 in float32, 12288 in float64) and adds
+    # into global memory above: S = 20000 lies below in float32 and above
+    # in float64, S = 70000 above in both
+    cases = [(700, 37, 5, "pallas_test"), (5000, 300, 81, "out_of_range"),
+             (300000, 20000, 9, "wide_s"), (300000, 70000, 9, "wide_s")]
+    for kind, (ids, S) in path_ids.items():
+        cases += [(ids.shape[0], S, 9, kind), (ids.shape[0], S, 81, kind)]
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        for N, S, D, kind in cases:
+            if kind in path_ids:
+                ids = path_ids[kind][0]
+            else:
+                lo, hi = (0, S + 3) if kind == "pallas_test" else (-3, S + 5)
+                ids = torch.as_tensor(rng.integers(lo, hi, N).astype(np.int32),
+                                      device="cuda")
+            table = torch.as_tensor(rng.standard_normal((S, D)), dtype=dtype,
+                                    device="cuda")
+            rows = torch.as_tensor(rng.standard_normal((N, D)), dtype=dtype,
+                                   device="cuda")
+            rows_t = rows.T.contiguous()
+            fns = {   # wrapper: (kernel, plain version)
+                "onehot_gather": (
+                    lambda: oh.onehot_gather(ids, table),
+                    lambda: oh.onehot_gather_plain(ids, table)),
+                "onehot_gather_t": (
+                    lambda: oh.onehot_gather_t(ids, table),
+                    lambda: oh.onehot_gather_t_plain(ids, table)),
+                "onehot_scatter_add": (
+                    lambda: oh.onehot_scatter_add(ids, rows, S),
+                    lambda: oh.onehot_scatter_add_plain(ids, rows, S)),
+                "onehot_scatter_add_t": (
+                    lambda: oh.onehot_scatter_add_t(ids, rows_t, S),
+                    lambda: oh.onehot_scatter_add_t_plain(ids, rows_t, S)),
+            }
+            rel, err = {}, {}
+            for k, (kern, plain) in fns.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err[k] = (got - want).abs().max().item()
+                rel[k] = err[k] / max(want.abs().max().item(), 1e-300)
+            ok = max(rel.values()) <= TOL[dname]
+            shape = f"{N}x{D}<->{S}"
+            phase("kernels", kernel="gather+segment_sum", dtype=dname,
+                  shape=shape, ids=kind,
+                  **{f"{k}_rel_err": f"{v:.3e}" for k, v in rel.items()},
+                  tol=TOL[dname], ok=ok)
+            if not ok:
+                raise RuntimeError(f"a gather/segment-sum kernel disagrees "
+                                   f"with its plain version at {dname} "
+                                   f"{shape} ({kind}): {rel}")
+            if kind not in path_ids or dtype != torch.float32:
+                continue
+            # the library call: index_select / index_add over S+1 rows, the
+            # last a zero row (takes the runtime path's sentinel id S)
+            tz = torch.cat([table, table.new_zeros((1, D))])
+            tzt = tz.T.contiguous()
+            Z, Zt = tz.new_zeros((S + 1, D)), tz.new_zeros((D, S + 1))
+            lib = {"onehot_gather": lambda: torch.index_select(tz, 0, ids),
+                   "onehot_gather_t": lambda: torch.index_select(tzt, 1, ids),
+                   "onehot_scatter_add": lambda: torch.index_add(Z, 0, ids,
+                                                                 rows),
+                   "onehot_scatter_add_t": lambda: torch.index_add(
+                       Zt, 1, ids, rows_t)}
+            for k, (kern, plain) in fns.items():
+                t = _in_turns(torch, {"plain_ms": plain,
+                                      "library_ms": lib[k], "ms": kern})
+                entry = "onehot_gather" if "gather" in k else \
+                    "onehot_scatter_add"
+                b_ms, b_by = bound(entry, (N, D, S))
+                key = f"{kind}:{k}:{shape}"
+                out[key] = {entry: dict(
+                    max_abs_err=err[k], ms=t["ms"], plain_ms=t["plain_ms"],
+                    library_ms=t["library_ms"], bound_ms=b_ms, bound_by=b_by)}
+                phase("kernel_times", kernel=k, path=kind, shape=shape,
+                      dtype=dname, ms=f"{t['ms']:.4f}",
+                      plain_ms=f"{t['plain_ms']:.4f}",
+                      library_ms=f"{t['library_ms']:.4f}",
+                      bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    return out
+
+
+def implicit_main_path_phase(torch, g2o, wrappers, implicit):
+    """The implicit Schur paths; returns the launch counts of each run."""
+    by_path = {}
+    for suffix, (p, solver, est0) in implicit.items():
+        cfg = IMPLICIT_PATHS[suffix]
+        tag = f"main_path_ba_implicit{suffix}"
+        form = solver._layout["form"]
+        need = (("onehot_gather_t", "onehot_scatter_add_t") if form == "dm"
+                else ("onehot_gather", "onehot_scatter_add"))
+        p.set_estimates({t: v.clone() for t, v in est0.items()})
+        res, launches = _run_lm(
+            torch, g2o, wrappers, p, est0, solver, tag, need=need, iters=10,
+            chi2_bound=cfg["bound"], extra=dict(
+                layout=form,
+                reference_g2o_cpu_pcg_ms_per_iteration=f"{cfg['ref_ms']:.1f}"))
+        trials = sum(res["trials_per_iteration"])
+        phase(f"launches{tag[len('main_path'):]}", layout=form,
+              lm_trials=trials,
+              cg_iterations_per_solve=f"{sum(res['cg_per_iteration']) / max(trials, 1):.2f}",
+              cg_per_iteration=",".join(map(str, res["cg_per_iteration"])),
+              **{f"{k}_per_lambda_trial": f"{launches[k] / max(trials, 1):.2f}"
+                 for k in ONEHOT})
+        lt = implicit_layer_times(torch, g2o, p, solver, res["lambda_final"],
+                                  explicit=suffix == "_runtime")
+        phase(f"layers_ba_implicit{suffix}", **{
+            k: f"{v:.3e}" if "residual" in k or "rel" in k or
+            k.startswith("lam") else (f"{v:.3f}" if isinstance(v, float)
+                                      else v) for k, v in lt.items()})
+        by_path[tag] = launches
+    return by_path
+
+
+def implicit_layer_times(torch, g2o, p, solver, lam, explicit=False):
+    """Time each stage of the implicit Schur solve alone at the final
+    estimates and λ (synchronized): linearize, the per-trial setup
+    (landmark inverses and B, the reduced right-hand side, the
+    preconditioner), one CG iteration, the back-substitution; and the
+    relative residual ``‖b − (H + λ₀I)dx‖ / ‖b‖`` of one solve, through
+    ``hvp_operator``, at λ₀ = 1e-5·max|H_jj|.  With ``explicit``, also the
+    relative difference between the step of an implicit solve at
+    ``tol=1e-10`` and the explicit ``SchurSolver``'s step, same
+    linearization and λ₀."""
+    from g2o_tpu_torch.core.optimizer import _max_abs_diag
+
+    data, aux, parts = p.data, solver.aux, solver._parts
+    out = {}
+    out["linearize_ms"], lin = _wall_ms(
+        torch, lambda: p.linearize_fn(data, p.estimates))
+    out["landmark_system_ms"], ctx = _wall_ms(
+        torch, lambda: parts["landmark_system"](data, lin, lam, aux))
+    out["reduced_rhs_ms"], bs = _wall_ms(
+        torch, lambda: parts["reduced_rhs"](ctx, data, lin, aux))
+    out["preconditioner_ms"], (db, minv) = _wall_ms(
+        torch, lambda: parts["preconditioner"](ctx, data, lin, lam, aux))
+    out["per_trial_setup_ms"] = (out["landmark_system_ms"]
+                                 + out["reduced_rhs_ms"]
+                                 + out["preconditioner_ms"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dxp, st = parts["cg"](ctx, data, lin, bs, db, minv, aux)
+    torch.cuda.synchronize()
+    out["cg_iterations"] = st["cg_iterations"]
+    out["cg_ms_per_iteration"] = ((time.perf_counter() - t0) * 1e3
+                                  / max(st["cg_iterations"], 1))
+    out["back_substitute_ms"], _ = _wall_ms(
+        torch, lambda: parts["back_substitute"](ctx, data, lin, dxp, aux))
+    out["solve_ms"], _ = _wall_ms(
+        torch, lambda: solver._solve_full(data, lin, lam, aux))
+    lam0 = 1e-5 * float(_max_abs_diag(p, lin))
+    dx = solver._solve_full(data, lin, lam0, aux)[0]
+    hvp = p.hvp_operator(data, lin)
+    Hdx = p.join_tangent(hvp(p.split_tangent(dx))) + lam0 * dx
+    rel = float((lin.b - Hdx).norm() / lin.b.norm())
+    if not math.isfinite(rel):
+        raise RuntimeError(f"non-finite implicit Schur solve at λ₀ = {lam0}")
+    out["rel_residual_at_lam0"] = rel
+    if explicit:
+        tight = g2o.ImplicitSchurSolver(
+            max_iter=100, tol=1e-10, precond="jacobi",
+            layout="bucketed").setup(p)
+        dx_i = tight._solve_full(data, lin, lam0, tight.aux)[0]
+        dx_e = g2o.SchurSolver(use_pallas=True).setup(p).solve(data, lin,
+                                                                lam0)
+        out["rel_diff_to_explicit_at_lam0"] = float(
+            (dx_i - dx_e).norm() / dx_e.norm())
+    out["lam"] = lam
+    out["lam0"] = lam0
+    return out
+
+
 def main():
     import torch
 
@@ -607,50 +899,70 @@ def main():
     sys.path.insert(0, HERE)
     import g2o_tpu_torch as g2o
     from g2o_tpu_torch.ops import chol_kernels as ck
+    from g2o_tpu_torch.ops import onehot as oh
     from g2o_tpu_torch.ops import segment_kernels as sk
 
     t0 = time.perf_counter()
     ck.build()                 # every library, one nvcc each, in parallel
     ck._load()
     sk._load()
+    oh._load()
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           flags=" ".join(ck.NVCC_FLAGS).replace(" ", "_"))
     wrappers = {"chol_batched": ck.chol_batched,
                 "solve_lower_batched": ck.solve_lower_batched,
                 "solve_upper_batched": ck.solve_upper_batched,
-                "segment_sum": sk.segment_sum}
+                "segment_sum": sk.segment_sum,
+                **{k: getattr(oh, k) for k in ONEHOT}}
     times = kernel_phase(torch, ck)
     ba = load_ba(torch, g2o)
     seg_times = segment_kernel_phase(torch, sk, ba)
+    implicit = load_implicit(torch, g2o)
+    onehot_times = onehot_kernel_phase(torch, oh, implicit)
     by_path = main_path_phase(torch, g2o, wrappers)
     by_path.update(ba_main_path_phase(torch, g2o, wrappers, ba))
+    by_path.update(implicit_main_path_phase(torch, g2o, wrappers, implicit))
+    # a new kernel's launches are its wrappers' launches
+    for counts in by_path.values():
+        for k, ws in NEW_KERNELS.items():
+            counts[k] = sum(counts[w] for w in ws)
 
     lay = ba["ladybug"][1]._layout
-    primary = dict(PRIMARY, segment_sum=(lay["n_pairs"], lay["dp"] ** 2,
-                                         lay["n_uniq"]))
     times.update(seg_times)
+    times.update(onehot_times)
+    n_venice = _path_ids(implicit)["venice"][0].shape[0]
+    shape_key = {k: _shape(*sh) for k, sh in PRIMARY.items()}
+    shape_key["segment_sum"] = (f"{lay['n_pairs']}x{lay['dp'] ** 2}->"
+                                f"{lay['n_uniq']}")
+    for k in NEW_KERNELS:
+        shape_key[k] = f"venice:{k}_t:{n_venice}x9<->800"
     chol_src = "g2o_tpu_torch/csrc/batched_chol.cu"
+    onehot_src = "g2o_tpu_torch/csrc/gather_segment.cu"
+    experimental = "scripts/pallas_onehot_experimental.py"
     source = {"chol_batched": chol_src, "solve_lower_batched": chol_src,
               "solve_upper_batched": chol_src,
-              "segment_sum": "g2o_tpu_torch/csrc/segment_sum.cu"}
+              "segment_sum": "g2o_tpu_torch/csrc/segment_sum.cu",
+              "onehot_gather": onehot_src, "onehot_scatter_add": onehot_src}
     replaces = {"chol_batched": "g2o_tpu/ops/pallas_chol.py:89",
                 "solve_lower_batched": "g2o_tpu/ops/pallas_chol.py:188",
                 "solve_upper_batched": "g2o_tpu/ops/pallas_chol.py:194",
-                "segment_sum": "g2o_tpu/ops/pallas_kernels.py:59"}
-
-    def shape_key(k):
-        sh = primary[k]
-        return (f"{sh[0]}x{sh[1]}->{sh[2]}" if k == "segment_sum"
-                else _shape(*sh))
+                "segment_sum": "g2o_tpu/ops/pallas_kernels.py:59",
+                "onehot_gather": (
+                    f"{experimental}:80 gather_t_mxu (K5); :143 "
+                    f"gather_mxu_rows (K7); :364 gather_t_mxu2 (K10)"),
+                "onehot_scatter_add": (
+                    f"{experimental}:112 segment_sum_t_mxu (K6); :172 "
+                    f"segment_sum_rows_mxu (K8); :274 segment_sum_t_mxu2 "
+                    f"(K9)")}
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source[k],
          "replaces": replaces[k],
          "launches": sum(c[k] for c in by_path.values()),
          "launches_by_path": {path: c[k] for path, c in by_path.items()},
-         "shape": shape_key(k), **times[shape_key(k)][k],
+         "shape": shape_key[k], **times[shape_key[k]][k],
          "by_shape": {sh: t[k] for sh, t in times.items() if k in t}}
-        for k in KERNELS]}))
+        for k in KERNELS + tuple(NEW_KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

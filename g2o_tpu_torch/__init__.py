@@ -23,11 +23,12 @@ from g2o_tpu_torch.core.graph import Graph  # noqa: E402
 from g2o_tpu_torch.core.lm_fused import optimize_fused  # noqa: E402
 from g2o_tpu_torch.core.optimizer import (LevenbergMarquardt,  # noqa: E402
                                           SparseOptimizer)
-from g2o_tpu_torch.core.solvers import (DenseSolver, PCGSolver,  # noqa: E402
+from g2o_tpu_torch.core.solvers import (DenseSolver,  # noqa: E402
+                                        ImplicitSchurSolver, PCGSolver,
                                         SchurSolver)
 from g2o_tpu_torch.core.solvers.supernodal import (  # noqa: E402
     SupernodalCholeskySolver)
 
 __all__ = ["Graph", "SparseOptimizer", "LevenbergMarquardt",
            "optimize_fused", "DenseSolver", "PCGSolver", "SchurSolver",
-           "SupernodalCholeskySolver"]
+           "ImplicitSchurSolver", "SupernodalCholeskySolver"]

@@ -166,12 +166,16 @@ class Graph:
 
     def compile(self, *, dtype=None, device="cuda", level: int = 0,
                 pad_edges_to_multiple: int = 1,
+                bucket_landmarks: bool = False,
                 assembly_precision: str = "highest"):
         """Freeze the edges of ``level`` into a :class:`Problem` of
         ``dtype`` tensors on ``device`` (float64 when ``dtype`` is None);
-        without a CUDA card the caller must pass ``device="cpu"``."""
+        without a CUDA card the caller must pass ``device="cpu"``.
+        ``bucket_landmarks=True`` gives the landmark-bucketed layout of the
+        implicit Schur solver."""
         from g2o_tpu_torch.core.problem import compile_graph
 
         return compile_graph(self, dtype=dtype, device=device, level=level,
                              pad_edges_to_multiple=pad_edges_to_multiple,
+                             bucket_landmarks=bucket_landmarks,
                              assembly_precision=assembly_precision)

@@ -1,5 +1,5 @@
 """Compiled structure-of-arrays problem, batched linearization and H·v —
-port of the non-bucketed paths of ``g2o_tpu/core/problem.py``.
+port of ``g2o_tpu/core/problem.py``.
 
 * residuals: one call of an edge type's residual on ``(E, ·)`` tensors;
 * Jacobians: exact autodiff through each vertex type's ``oplus`` at zero
@@ -12,6 +12,16 @@ port of the non-bucketed paths of ``g2o_tpu/core/problem.py``.
   accumulated with ``index_add_``; PCG never forms ``H``: it uses
   :meth:`Problem.hvp_operator` (gather, ``WJ·v``, ``Jcatᵀz``, ``index_add_``).
   The dense solver assembles it with :meth:`Problem.dense_hessian_fn`.
+
+``bucket_landmarks=True`` lays bundle adjustment out for the implicit
+Schur solver (``g2o_tpu_torch/ops/bucketed.py``): the landmarks of a type
+observed by one edge type are reordered into bucket order, the observation
+rows into degree-bucketed slabs.  Such a batch reads its camera states
+with the (row-major) gather kernel and is linearized DIMS-MAJOR (edge axis
+last): its landmark sums are per-slab reshapes, its camera ``b`` and
+diagonal blocks come from the segment-sum kernel (``ops/onehot.py``), and the
+linearization hands the solver the off-diagonal blocks and the
+bucket-order landmark system in ``LinearizedSystem.extras``.
 
 The entry points build on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
@@ -27,6 +37,8 @@ from torch.func import jvp, vjp, vmap
 
 from g2o_tpu_torch.core.types import REGISTRY, EdgeType
 from g2o_tpu_torch.ops import robust as robust_mod
+from g2o_tpu_torch.ops.bucketed import bucket_by_segment
+from g2o_tpu_torch.ops.onehot import onehot_gather, onehot_scatter_add_t
 
 
 class EdgeBatchData(NamedTuple):
@@ -49,18 +61,49 @@ class ProblemData(NamedTuple):
     free_mask: dict        # edge name -> (E, k): 0.0 where the slot's vertex is fixed
     offsets: dict          # vertex-type name -> (N_t,) int64 flat tangent offset
     fixed_flat: torch.Tensor  # (T,) 1.0 on the tangent slots of fixed vertices
+    # bucketed edge name -> {"segp": (S_used,) int64 bucket-order landmark
+    # ids, "ids32": (k, E) int32 slot ids for the kernels, "meas_t" (m, E),
+    # "info_t" (r, r, E), "free_mask" (E, k), "free_mask_t" (k, E)}
+    plans: dict = {}
+
+
+class BucketedEdgeSpec(NamedTuple):
+    """Static shape facts of a landmark-bucketed edge batch (its index
+    tensors travel in ``ProblemData.plans``).  Rows ``[0, n_rows)`` form
+    ``len(degrees)`` slabs: slab ``b`` holds ``counts[b]`` landmarks ×
+    ``degrees[b]`` padded rows, degree-major; padding rows replicate their
+    landmark's first row with ``active=False`` (W == 0)."""
+
+    pose_slot: int
+    lm_slot: int
+    counts: tuple
+    degrees: tuple
+    n_rows: int          # sum(counts[b] * degrees[b]) — slab-covered prefix
+    # True when the landmark type's vertex order IS the bucket segment
+    # order (build_problem reorders it when one edge type buckets the
+    # type): segp == arange, so segment gathers and scatters are slices
+    seg_identity: bool = False
 
 
 class LinearizedSystem(NamedTuple):
     """Output of one linearization — everything the iterative solvers need."""
 
-    jacs: dict             # edge name -> tuple of (E, r, d_s), fixed slots zeroed
+    jacs: dict             # edge name -> tuple of (E, r, d_s), fixed slots
+    # zeroed; BUCKETED batches store DIMS-MAJOR (r, d_s, E) leaves (use
+    # Problem.edge_jacs for the row-major view)
     weights: dict          # edge name -> (E, r, r) = rho' * active * Omega
-    errors: dict           # edge name -> (E, r)
+    # (bucketed: (r, r, E); Problem.edge_weights)
+    errors: dict           # edge name -> (E, r)  (bucketed: (r, E))
     b: torch.Tensor        # (T,) = -Jᵀ W e   (solve H dx = b)
     diag: dict             # vertex-type name -> (N_t, d, d) Hessian diagonal blocks
     chi2_robust: torch.Tensor
     chi2: torch.Tensor
+    # bucketed edge name -> {"Bt": (dp, dl, E) off-diagonal blocks JpᵀWJl,
+    # "bl_bucket(_t)", "Hll_bucket(_t)": the landmark gradient rows and
+    # diagonal blocks in BUCKET order, row-major and dims-major}; the
+    # implicit Schur solver reads them instead of re-deriving them per
+    # λ-trial
+    extras: dict = {}
 
 
 class Problem:
@@ -72,7 +115,7 @@ class Problem:
                  estimates: dict, marginalized: dict, vid_index: dict,
                  type_bases: dict, total_dim: int, dtype, device,
                  uniform_kernel=None, assembly_precision: str = "highest",
-                 n_active_edges=None):
+                 n_active_edges=None, bucket_specs=None):
         # accepted for API parity with the JAX package: the port assembles
         # in full precision either way (TF32 is off package-wide)
         if assembly_precision not in ("highest", "default"):
@@ -94,6 +137,8 @@ class Problem:
         # kernel (one kernel evaluated instead of all ten and a select)
         self.uniform_kernel = uniform_kernel or {}
         self.n_active_edges = n_active_edges
+        # edge name -> BucketedEdgeSpec of the landmark-bucketed batches
+        self.bucket_specs = bucket_specs or {}
 
     # ------------------------------------------------------------------ #
     # host-side helpers
@@ -116,22 +161,55 @@ class Problem:
     # per-edge residuals and Jacobians
     # ------------------------------------------------------------------ #
 
-    def _states(self, et: EdgeType, batch: EdgeBatchData, estimates):
-        return tuple(estimates[vt.name][batch.vidx[:, s]]
-                     for s, vt in enumerate(et.vertex_types))
+    def _slab_rows(self, est, name, plans, n_rows):
+        """The landmark states of bucketed batch ``name``, row by row
+        ``(n_rows, rep)``: one bucket-order read of the landmark estimates
+        and a broadcast per slab (every row of a slab segment, its padding
+        included, is that segment's landmark).  Rows past the slab-covered
+        prefix (``pad_edges_to_multiple``) repeat batch row 0, the first
+        segment's first row."""
+        spec = self.bucket_specs[name]
+        n_used = sum(spec.counts)
+        est_used = (est[:n_used] if spec.seg_identity
+                    else est[plans[name]["segp"]])
+        rows, off = [], 0
+        for nseg, dg in zip(spec.counts, spec.degrees):
+            v = est_used[off:off + nseg]
+            rows.append(v[None].expand(dg, nseg, v.shape[1]).reshape(
+                nseg * dg, v.shape[1]))
+            off += nseg
+        tail = n_rows - spec.n_rows
+        if tail:
+            rows.append(est_used[:1].expand(tail, est_used.shape[1]))
+        return torch.cat(rows, dim=0)
 
-    def _residuals(self, et, batch, estimates):
-        return et.residual(self._states(et, batch, estimates), batch.meas,
-                           batch.param)
+    def _states(self, et: EdgeType, batch: EdgeBatchData, estimates,
+                name=None, plans=None):
+        """Per-edge vertex states, row-major ``(E, rep)`` per slot.  A
+        bucketed batch reads its landmarks per slab and gathers its cameras
+        with the gather kernel — the same rows as the plain row gather."""
+        spec = self.bucket_specs.get(name) if plans is not None else None
+        states = []
+        for s, vt in enumerate(et.vertex_types):
+            t = vt.name
+            if spec is not None and s == spec.lm_slot:
+                states.append(self._slab_rows(estimates[t], name, plans,
+                                              batch.vidx.shape[0]))
+            elif spec is not None and s == spec.pose_slot:
+                states.append(onehot_gather(plans[name]["ids32"][s],
+                                            estimates[t]))
+            else:
+                states.append(estimates[t][batch.vidx[:, s]])
+        return tuple(states)
 
     def _residuals_and_jacobians(self, et: EdgeType, batch: EdgeBatchData,
-                                 estimates):
-        """``e (E, r)`` at the current states and the slot Jacobians
-        ``(E, r, d_s)`` of ``e(x ⊞ δ)`` at ``δ = 0``.  The error is evaluated
-        at the states themselves, not at ``x ⊞ 0``: ``oplus`` renormalizes a
-        quaternion that is unit only to the precision it was read with."""
+                                 states):
+        """``e (E, r)`` at the given per-edge ``states`` and the slot
+        Jacobians ``(E, r, d_s)`` of ``e(x ⊞ δ)`` at ``δ = 0``.  The error is
+        evaluated at the states themselves, not at ``x ⊞ 0``: ``oplus``
+        renormalizes a quaternion that is unit only to the precision it was
+        read with."""
         vts = tuple(et.vertex_types)
-        states = self._states(et, batch, estimates)
         e = et.residual(states, batch.meas, batch.param)
         E = batch.vidx.shape[0]
         r = et.residual_dim
@@ -163,13 +241,25 @@ class Problem:
             return robust_mod.robustify(uk, e2, batch.delta)
         return robust_mod.robustify_batch(batch.kernel, e2, batch.delta)
 
+    # layout accessors: bucketed batches keep DIMS-MAJOR leaves in the
+    # LinearizedSystem; these give the row-major views every other
+    # consumer (H·v, the dense and explicit Schur solvers) works in
+
     def edge_jacs(self, lin, name):
         """Row-major ``(E, r, d_s)`` Jacobian slot tuple of batch ``name``."""
+        if name in self.bucket_specs:
+            return tuple(J.permute(2, 0, 1) for J in lin.jacs[name])
         return lin.jacs[name]
 
     def edge_weights(self, lin, name):
         """Row-major ``(E, r, r)`` robust information of batch ``name``."""
-        return lin.weights[name]
+        W = lin.weights[name]
+        return W.permute(2, 0, 1) if name in self.bucket_specs else W
+
+    def edge_errors(self, lin, name):
+        """Row-major ``(E, r)`` residuals of batch ``name``."""
+        e = lin.errors[name]
+        return e.T if name in self.bucket_specs else e
 
     # ------------------------------------------------------------------ #
     # tangent-vector layout
@@ -201,7 +291,9 @@ class Problem:
         total_p = torch.zeros((), dtype=self.dtype, device=self.device)
         for name, et in self.edge_types.items():
             batch = data.edges[name]
-            e = self._residuals(et, batch, estimates)
+            e = et.residual(self._states(et, batch, estimates, name,
+                                         data.plans),
+                            batch.meas, batch.param)
             e2 = torch.einsum("er,ers,es->e", e, batch.info, e)
             rho = self._robustify(name, batch, e2)
             act = batch.active.to(self.dtype)
@@ -216,12 +308,19 @@ class Problem:
         diag = {t: torch.zeros((self.counts[t], vt.tangent_dim, vt.tangent_dim),
                                dtype=self.dtype, device=self.device)
                 for t, vt in self.vertex_types.items()}
-        jacs, weights, errors = {}, {}, {}
+        jacs, weights, errors, extras = {}, {}, {}, {}
         chi2_r = torch.zeros((), dtype=self.dtype, device=self.device)
         chi2_p = torch.zeros((), dtype=self.dtype, device=self.device)
         for name, et in self.edge_types.items():
             batch = data.edges[name]
-            e, Js = self._residuals_and_jacobians(et, batch, estimates)
+            if name in self.bucket_specs:
+                Jt, Wt, e_t, c_r, c_p = self._linearize_bucketed(
+                    name, et, batch, data, estimates, b_blocks, diag, extras)
+                chi2_r, chi2_p = chi2_r + c_r, chi2_p + c_p
+                jacs[name], weights[name], errors[name] = Jt, Wt, e_t
+                continue
+            e, Js = self._residuals_and_jacobians(
+                et, batch, self._states(et, batch, estimates))
             # zero Jacobian columns of fixed vertices — the masking
             # analogue of hessianIndex == -1 (sparse_optimizer.cpp:179-188)
             fm = data.free_mask[name]
@@ -244,7 +343,81 @@ class Problem:
             jacs[name], weights[name], errors[name] = Js, W, e
         return LinearizedSystem(jacs, weights, errors,
                                 self.join_tangent(b_blocks), diag, chi2_r,
-                                chi2_p)
+                                chi2_p, extras)
+
+    def _linearize_bucketed(self, name, et, batch, data, estimates,
+                            b_blocks, diag, extras):
+        """The DIMS-MAJOR linearization of bucketed batch ``name`` (edge
+        axis last), as the JAX package's bucketed branch of
+        ``linearize_fn``.  Adds the batch's gradient rows and diagonal
+        blocks into ``b_blocks``/``diag`` in place — landmarks by per-slab
+        sums in bucket order, cameras by the segment-sum kernel — fills
+        ``extras[name]`` and returns ``(Jt, Wt, e_t, chi2_robust, chi2)``.
+        The small contractions are written as broadcast products summed
+        over the contracted axis, in the JAX package's order."""
+        spec = self.bucket_specs[name]
+        plan = data.plans[name]
+        e, Js = self._residuals_and_jacobians(
+            et, batch, self._states(et, batch, estimates, name, data.plans))
+        fm_t = plan["free_mask_t"]
+        Jt = tuple(J.permute(1, 2, 0).contiguous() * fm_t[s]     # (r, d, E)
+                   for s, J in enumerate(Js))
+        e_t = e.T.contiguous()                                   # (r, E)
+        info_t = plan["info_t"]                                  # (r, r, E)
+        e2 = torch.sum(e_t[:, None, :] * info_t * e_t[None, :, :],
+                       dim=(0, 1))
+        rho = self._robustify(name, batch, e2)
+        act = batch.active.to(self.dtype)
+        Wt = info_t * (rho[:, 1] * act)[None, None, :]
+        Wet = torch.sum(Wt * e_t[None, :, :], dim=1)             # (r, E)
+        nb = spec.n_rows
+
+        def slab_sum(z):
+            """(k, E) rows -> (k, S_used) per-landmark sums: a (k, deg, n)
+            view of each degree-major slab, summed over deg."""
+            out, off = [], 0
+            for n, dg in zip(spec.counts, spec.degrees):
+                out.append(z[:, off:off + n * dg].reshape(
+                    z.shape[0], dg, n).sum(dim=1))
+                off += n * dg
+            return torch.cat(out, dim=1)
+
+        ext = extras.setdefault(name, {})
+        WJ_ts = []
+        for s, vt in enumerate(et.vertex_types):
+            t, d = vt.name, vt.tangent_dim
+            # WJ[r,f,e] = Σ_s W[r,s,e] J[s,f,e]
+            WJ_t = torch.sum(Wt[:, :, None, :] * Jt[s][None, :, :, :], dim=1)
+            WJ_ts.append(WJ_t)
+            # Hss[d,f,e] = Σ_r J[r,d,e] WJ[r,f,e]
+            Hss_t = torch.sum(Jt[s][:, :, None, :] * WJ_t[:, None, :, :],
+                              dim=0).reshape(d * d, -1)          # (dd, E)
+            brows_t = -torch.sum(Jt[s] * Wet[:, None, :], dim=0)  # (d, E)
+            if s == spec.lm_slot:
+                bl_t = slab_sum(brows_t[:, :nb])                 # (d, S_used)
+                Hll_t = slab_sum(Hss_t[:, :nb])                  # (dd, S_used)
+                bl_bucket, Hll_bucket = bl_t.T, Hll_t.T.reshape(-1, d, d)
+                ext.update(bl_bucket=bl_bucket, Hll_bucket=Hll_bucket,
+                           bl_bucket_t=bl_t, Hll_bucket_t=Hll_t)
+                if spec.seg_identity:
+                    ns = bl_bucket.shape[0]
+                    b_blocks[t][:ns] += bl_bucket
+                    diag[t][:ns] += Hll_bucket
+                else:
+                    b_blocks[t].index_add_(0, plan["segp"], bl_bucket)
+                    diag[t].index_add_(0, plan["segp"], Hll_bucket)
+            else:
+                idx = plan["ids32"][s]
+                b_blocks[t] += onehot_scatter_add_t(
+                    idx, brows_t.contiguous(), self.counts[t])
+                diag[t] += onehot_scatter_add_t(
+                    idx, Hss_t.contiguous(), self.counts[t]).reshape(-1, d, d)
+        # off-diagonal B = Jpᵀ W Jl, reusing W·Jl of the landmark slot
+        ps, ls = spec.pose_slot, spec.lm_slot
+        ext["Bt"] = torch.sum(Jt[ps][:, :, None, :]
+                              * WJ_ts[ls][:, None, :, :], dim=0)  # (dp, dl, E)
+        return (Jt, Wt, e_t, torch.sum(rho[:, 0] * act),
+                torch.sum(e2 * act))
 
     def hvp_operator(self, data: ProblemData, lin: LinearizedSystem,
                      precision=None):
@@ -351,11 +524,14 @@ def _device(device):
 
 def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
                   pad_edges_to_multiple=1, assembly_precision="highest",
-                  registry=None):
+                  registry=None, bucket_specs=None, segps=None):
     """Shared tail of :func:`build_problem` and :func:`problem_from_numpy`:
     ``vertex_arrays`` is ``{type name: (estimates (N, rep), fixed (N,),
     marginalized (N,))}`` in internal vertex order, ``edge_arrays`` is
-    ``{edge name: {field: array}}`` with LOCAL vertex indices in ``vidx``."""
+    ``{edge name: {field: array}}`` with LOCAL vertex indices in ``vidx``.
+    ``bucket_specs``/``segps`` (edge name -> spec / bucket-order landmark
+    ids) mark the batches already laid out in bucketed slabs."""
+    bucket_specs = bucket_specs or {}
     registry = registry or REGISTRY
     dtype = torch.float64 if dtype is None else dtype
     device = _device(device)
@@ -383,6 +559,7 @@ def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
 
     m = max(int(pad_edges_to_multiple), 1)
     edge_types, edges, free_mask, uniform_kernel = {}, {}, {}, {}
+    plans = {}
     n_active = 0
     for name, arrays in edge_arrays.items():
         et = _resolve(registry.edge_types, name)
@@ -421,20 +598,113 @@ def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
             active=ten(a["active"], torch.bool),
             param=ten(a["param"]),
         )
+        if name in bucket_specs:
+            # dims-major constants of the bucketed linearization, and int32
+            # slot ids for the gather and segment-sum kernels
+            b = edges[name]
+            plans[name] = dict(
+                segp=ten(segps[name], torch.int64),
+                ids32=ten(np.ascontiguousarray(vidx.T), torch.int32),
+                meas_t=b.meas.T.contiguous(),
+                info_t=b.info.permute(1, 2, 0).contiguous(),
+                free_mask=free_mask[name],
+                free_mask_t=free_mask[name].T.contiguous())
     data = ProblemData(
         edges=edges, fixed=fixed, free_mask=free_mask, offsets=offsets,
         fixed_flat=torch.as_tensor(
             np.concatenate(fixed_flat) if fixed_flat else np.zeros(0),
-            dtype=dtype, device=device))
+            dtype=dtype, device=device),
+        plans=plans)
     return Problem(vertex_types, counts, edge_types, data, estimates,
                    marginalized, vid_index, type_bases, base, dtype, device,
                    uniform_kernel=uniform_kernel,
                    assembly_precision=assembly_precision,
-                   n_active_edges=n_active)
+                   n_active_edges=n_active, bucket_specs=bucket_specs)
+
+
+def _bucket_lm_slot(et, E, vertex_arrays):
+    """Slot of the single fully-marginalized endpoint of a bucketable binary
+    edge batch, or None."""
+    if not (E > 0 and len(et.vertex_types) == 2):
+        return None
+    marg_slots = [s for s, svt in enumerate(et.vertex_types)
+                  if len(vertex_arrays[svt.name][2]) > 0
+                  and bool(vertex_arrays[svt.name][2].all())]
+    return marg_slots[0] if len(marg_slots) == 1 else None
+
+
+def _reorder_landmarks(vertex_arrays, sorted_vids, edge_arrays, registry):
+    """Pass 2 of the bucketed build: a landmark type bucketed by exactly ONE
+    edge type is reordered into bucket-segment order, so pass 3's plan has
+    ``segp == arange`` (``seg_identity``).  Permutes the type's vertex
+    arrays and ids, and renumbers every edge slot of that type, in place."""
+    lm_users: dict = {}
+    for name, a in edge_arrays.items():
+        et = registry.edge_types[name]
+        ls = _bucket_lm_slot(et, len(a["vidx"]), vertex_arrays)
+        if ls is not None:
+            lm_users.setdefault(et.vertex_types[ls].name, []).append(
+                (name, ls))
+    for lt, users in lm_users.items():
+        if len(users) != 1:
+            continue
+        name, ls = users[0]
+        plan = bucket_by_segment(edge_arrays[name]["vidx"][:, ls],
+                                 len(sorted_vids[lt]))
+        perm_v = plan.seg_perm_full                # new position -> old idx
+        inv = np.empty_like(perm_v)
+        inv[perm_v] = np.arange(len(perm_v), dtype=perm_v.dtype)
+        vertex_arrays[lt] = tuple(x[perm_v] for x in vertex_arrays[lt])
+        sorted_vids[lt] = sorted_vids[lt][perm_v]
+        for name2, a2 in edge_arrays.items():
+            for s2, svt2 in enumerate(registry.edge_types[name2].vertex_types):
+                if svt2.name == lt:
+                    a2["vidx"][:, s2] = inv[a2["vidx"][:, s2]]
+
+
+def _bucket_rows(edge_arrays, vertex_arrays, registry):
+    """Pass 3 of the bucketed build: the rows of every binary batch with one
+    fully-marginalized slot are permuted into the degree-bucketed slabs of
+    ``ops/bucketed.py``, in place.  A padding slot replicates the FIRST ROW
+    OF ITS OWN SLAB SEGMENT with ``active=False`` — it then shares its
+    landmark, so the per-slab landmark broadcasts equal the row gather, and
+    W == 0 keeps it out of every sum.  Returns ``(bucket_specs, segps)``."""
+    specs, segps = {}, {}
+    for name, a in edge_arrays.items():
+        et = registry.edge_types[name]
+        E = len(a["vidx"])
+        ls = _bucket_lm_slot(et, E, vertex_arrays)
+        if ls is None:
+            continue
+        lt = et.vertex_types[ls].name
+        plan = bucket_by_segment(a["vidx"][:, ls], len(vertex_arrays[lt][0]))
+        perm = plan.perm_src.copy()
+        sentinel = plan.perm_src == E
+        off = 0
+        for nseg, dg in zip(plan.counts, plan.degrees):
+            # degree-major slabs (dg, nseg): a segment's first row is its
+            # degree-0 slot
+            blk = perm[off:off + nseg * dg].reshape(dg, nseg)
+            blk[:] = np.where(blk == E, blk[:1, :], blk)
+            off += nseg * dg
+        for k in _EDGE_FIELDS:
+            a[k] = np.asarray(a[k])[perm]          # fancy index: fresh array
+        a["active"] = a["active"].astype(bool)
+        a["active"][sentinel] = False
+        seg_ident = bool(np.array_equal(
+            plan.seg_perm, np.arange(len(plan.seg_perm),
+                                     dtype=plan.seg_perm.dtype)))
+        specs[name] = BucketedEdgeSpec(
+            pose_slot=1 - ls, lm_slot=ls, counts=plan.counts,
+            degrees=plan.degrees, n_rows=int(len(plan.perm_src)),
+            seg_identity=seg_ident)
+        segps[name] = plan.seg_perm
+    return specs, segps
 
 
 def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
                   pad_edges_to_multiple: int = 1,
+                  bucket_landmarks: bool = False,
                   assembly_precision: str = "highest",
                   registry=None) -> Problem:
     """Build a :class:`Problem` from raw numpy blocks keyed by type name:
@@ -446,7 +716,14 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
 
     Vertices are sorted by id within each type — the deterministic index
     mapping of the reference (``sparse_optimizer.cpp:168,504``) and of the
-    JAX package, so both give the same tangent layout."""
+    JAX package, so both give the same tangent layout.
+
+    ``bucket_landmarks=True`` lays every binary batch with one
+    fully-marginalized slot out in landmark-degree buckets, for the
+    implicit Schur solver: landmark types observed by one edge type are
+    reordered into bucket order first (``vid_index``, ``estimates_by_vid``
+    and ``fixed_flat`` follow the reorder; within-type vertex order is an
+    internal layout choice)."""
     vertex_arrays, sorted_vids, vid_index = {}, {}, {}
     for t, (vids, est, fx, mg) in vertex_blocks.items():
         order = np.argsort(np.asarray(vids), kind="stable")
@@ -455,7 +732,6 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
                             np.asarray(fx, dtype=bool)[order],
                             np.asarray(mg, dtype=bool)[order])
         sorted_vids[t] = sv
-        vid_index.update(zip(sv.tolist(), ((t, i) for i in range(len(sv)))))
     registry = registry or REGISTRY
     edge_arrays = {}
     for name, (vids, meas, info, kern, delt, act, par) in edge_blocks.items():
@@ -477,11 +753,18 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
         edge_arrays[name] = dict(vidx=vidx, meas=meas, info=info,
                                  kernel=kern, delta=delt, active=act,
                                  param=par)
+    specs, segps = {}, {}
+    if bucket_landmarks:
+        _reorder_landmarks(vertex_arrays, sorted_vids, edge_arrays, registry)
+        specs, segps = _bucket_rows(edge_arrays, vertex_arrays, registry)
+    # built AFTER the reorder: ids follow their vertices
+    for t, sv in sorted_vids.items():
+        vid_index.update(zip(sv.tolist(), ((t, i) for i in range(len(sv)))))
     return _make_problem(vertex_arrays, edge_arrays, vid_index=vid_index,
                          dtype=dtype, device=device,
                          pad_edges_to_multiple=pad_edges_to_multiple,
                          assembly_precision=assembly_precision,
-                         registry=registry)
+                         registry=registry, bucket_specs=specs, segps=segps)
 
 
 def problem_from_numpy(vertices, edges, *, dtype=None, device="cuda",
@@ -501,6 +784,7 @@ def problem_from_numpy(vertices, edges, *, dtype=None, device="cuda",
 
 def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
                   pad_edges_to_multiple: int = 1,
+                  bucket_landmarks: bool = False,
                   assembly_precision: str = "highest") -> Problem:
     """Freeze a host :class:`~g2o_tpu_torch.core.graph.Graph` — the analogue
     of ``initializeOptimization`` + ``buildIndexMapping``
@@ -540,5 +824,6 @@ def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
     return build_problem(vertex_blocks, edge_blocks, dtype=dtype,
                          device=device,
                          pad_edges_to_multiple=pad_edges_to_multiple,
+                         bucket_landmarks=bucket_landmarks,
                          assembly_precision=assembly_precision,
                          registry=graph.registry)

@@ -90,11 +90,9 @@ def load_bal_problem(path_or_file, *, fix_first_camera: bool = False,
     """Array-direct BAL loading: text -> numpy blocks ->
     :func:`~g2o_tpu_torch.core.problem.build_problem`, without per-record
     Python objects.  The problem is built on ``device`` (the CUDA card
-    unless the caller passes ``"cpu"``)."""
-    if bucket_landmarks:
-        raise NotImplementedError(
-            "bucket_landmarks=True belongs to the implicit Schur solver's "
-            "layout, which is not ported yet (ROADMAP A.6)")
+    unless the caller passes ``"cpu"``); ``bucket_landmarks=True`` gives
+    the landmark-bucketed layout of the implicit Schur solver (points
+    reordered into bucket order)."""
     obs, cams, pts = _parse(_read_text(path_or_file))
     C, P, O = len(cams), len(pts), len(obs)
     cam_fixed = np.zeros(C, dtype=bool)
@@ -121,7 +119,8 @@ def load_bal_problem(path_or_file, *, fix_first_camera: bool = False,
     }
     return build_problem(vertex_blocks, edge_blocks, dtype=dtype,
                          device=device,
-                         pad_edges_to_multiple=pad_edges_to_multiple)
+                         pad_edges_to_multiple=pad_edges_to_multiple,
+                         bucket_landmarks=bucket_landmarks)
 
 
 def save_bal(g: Graph, path, estimates_by_vid=None):

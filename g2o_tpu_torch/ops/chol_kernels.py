@@ -6,8 +6,8 @@ The kernels are CUDA C++ in ``g2o_tpu_torch/csrc/batched_chol.cu`` (its
 header says what bounds them and how they are laid out).  They are built
 with ``nvcc`` at first use into ``g2o_tpu_torch/_build/`` and loaded with
 ``ctypes``; :func:`build` is the package's one build helper and also builds
-the segment-sum library of ``ops/segment_kernels.py``.  Beside each wrapper
-is its plain PyTorch version:
+the libraries of ``ops/segment_kernels.py`` and ``ops/onehot.py``.  Beside
+each wrapper is its plain PyTorch version:
 
 * on a CPU tensor the wrapper returns the plain version (the CPU tests run
   it);
@@ -30,7 +30,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
 # library name -> CUDA source; each builds into lib<name>_<hash>.so
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("batched_chol", "segment_sum")}
+           for name in ("batched_chol", "segment_sum", "gather_segment")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

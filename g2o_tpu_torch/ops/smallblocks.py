@@ -1,6 +1,7 @@
 """Closed-form inverses of tiny SPD blocks — port of
 ``g2o_tpu/ops/smallblocks.py::inv_small`` (the block-Jacobi
-preconditioner's per-vertex inverse)."""
+preconditioner's per-vertex inverse) and ``::inv_small_t`` (its dims-major
+twin)."""
 
 from __future__ import annotations
 
@@ -42,3 +43,12 @@ def inv_small(A):
         ], dim=-2)
         return M * inv_det[..., None, None]
     return torch.cholesky_inverse(torch.linalg.cholesky(A))
+
+
+def inv_small_t(At):
+    """DIMS-MAJOR twin of :func:`inv_small`: blocks ``(r, r, ...)`` with the
+    batch axes LAST (the implicit Schur solver keeps its landmark blocks
+    with the segment axis last, as its linearization produces them).  The
+    same formulas, applied to a view with the block axes moved last."""
+    return torch.movedim(inv_small(torch.movedim(At, (0, 1), (-2, -1))),
+                         (-2, -1), (0, 1))

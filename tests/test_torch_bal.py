@@ -244,8 +244,3 @@ def test_parse_rejects_short_file():
         tbal.load_bal_problem(io.StringIO("2 1 3\n0 0 1.0 2.0\n"),
                               device="cpu")
 
-
-def test_bucket_landmarks_raises(text):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tbal.load_bal_problem(io.StringIO(text), bucket_landmarks=True,
-                              device="cpu")

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the K1/K2/K3/K4 kernels against their plain
-PyTorch versions, and the PCG, supernodal and Schur (BAL) paths on the card
+"""The port on a CUDA card: the K1/K2/K3/K4 kernels and the gather and
+segment-sum kernels (K5–K10) against their plain PyTorch versions, and the
+PCG, supernodal, explicit and implicit Schur (BAL) paths on the card
 against the same paths on the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
@@ -24,7 +25,7 @@ import torch
 
 import g2o_tpu_torch
 from g2o_tpu_torch.io import bal
-from g2o_tpu_torch.ops import chol_kernels, segment_kernels
+from g2o_tpu_torch.ops import chol_kernels, onehot, segment_kernels
 from g2o_tpu_torch.sim.generators import create_sphere
 
 C20 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -158,6 +159,88 @@ def test_segment_sum_rejects_bad_input_on_card():
         segment_kernels.segment_sum(torch.ones((3, 4), device="cuda").T,
                                     torch.zeros(4, dtype=torch.int32,
                                                 device="cuda"), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-11)])
+@pytest.mark.parametrize("n,s,d,lo,hi", [
+    (700, 37, 5, 0, 40),                    # the test_pallas.py shape
+    (700, 37, 9, -3, 42),                   # out-of-range ids both sides
+    (5000, 300, 81, -3, 305),               # table past 48 KB: __ldg path
+    (200000, 800, 81, 0, 801),              # Venice widths, tiled D
+    (300000, 20000, 9, -3, 20005),          # f32 shared, f64 global sum
+    (300000, 70000, 9, -3, 70005)])         # past a shared column: global
+def test_onehot_kernels_match_plain_on_card(n, s, d, lo, hi, dtype, tol):
+    _need_card()
+    rng = np.random.default_rng(n + d)
+    ids = torch.as_tensor(rng.integers(lo, hi, size=n).astype(np.int32),
+                          device="cuda")
+    table = torch.as_tensor(rng.standard_normal((s, d)), dtype=dtype,
+                            device="cuda")
+    rows = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype,
+                           device="cuda")
+    rows_t = rows.T.contiguous()
+    wrappers = (onehot.onehot_gather, onehot.onehot_gather_t,
+                onehot.onehot_scatter_add, onehot.onehot_scatter_add_t)
+    before = [w.launches for w in wrappers]
+    got = (onehot.onehot_gather(ids, table), onehot.onehot_gather_t(ids, table),
+           onehot.onehot_scatter_add(ids, rows, s),
+           onehot.onehot_scatter_add_t(ids, rows_t, s))
+    want = (onehot.onehot_gather_plain(ids, table),
+            onehot.onehot_gather_t_plain(ids, table),
+            onehot.onehot_scatter_add_plain(ids, rows, s),
+            onehot.onehot_scatter_add_t_plain(ids, rows_t, s))
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, b in zip(got[2:], want[2:]):
+        assert a.shape == b.shape == (s, d)
+        assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_onehot_rejects_bad_input_on_card():
+    _need_card()
+    table = torch.ones((4, 3), device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        onehot.onehot_gather(torch.zeros(5, dtype=torch.int64,
+                                         device="cuda"), table)
+    with pytest.raises(ValueError, match="contiguous"):
+        onehot.onehot_scatter_add_t(torch.zeros(4, dtype=torch.int32,
+                                                device="cuda"),
+                                    torch.ones((4, 3), device="cuda").T, 2)
+    with pytest.raises(ValueError, match="ids"):
+        onehot.onehot_scatter_add(torch.zeros(5, dtype=torch.int32,
+                                              device="cuda"), table, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket_landmarks,layout,precond", [
+    (True, "auto", "schur_jacobi"), (False, "bucketed", "jacobi")])
+def test_implicit_schur_on_card_matches_cpu(bucket_landmarks, layout,
+                                            precond):
+    """10 LM iterations on the C20 BAL file with Huber, float64, in the
+    dims-major and the runtime-bucketed layout: the gather and segment-sum
+    kernels run on the card, never on the CPU."""
+    _need_card()
+    with gzip.open(C20, "rt") as fh:
+        text = fh.read()
+    wrappers = (onehot.onehot_gather, onehot.onehot_gather_t,
+                onehot.onehot_scatter_add, onehot.onehot_scatter_add_t)
+    chis, launches = [], []
+    for device in ("cpu", "cuda"):
+        p = bal.load_bal_problem(io.StringIO(text), huber=1.0, device=device,
+                                 bucket_landmarks=bucket_landmarks)
+        before = [w.launches for w in wrappers]
+        res = g2o_tpu_torch.optimize_fused(p, g2o_tpu_torch.ImplicitSchurSolver(
+            max_iter=100, tol=1e-2, precond=precond, layout=layout), 10)
+        launches.append([w.launches - b for w, b in zip(wrappers, before)])
+        chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
+    assert launches[0] == [0, 0, 0, 0]
+    used = launches[1][1::2] if bucket_landmarks else launches[1][0::2]
+    assert min(used) > 0
+    np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
 
 
 @pytest.mark.cuda
