@@ -11,18 +11,23 @@ exits non-zero without printing a result:
    one process per source, all started together;
 3. kernels: K1 (batched Cholesky), K2 (batched forward substitution) and K3
    (batched backward substitution) against their plain PyTorch versions on
-   the card, float32 and float64, at the test shapes and at the shapes the
-   two main paths give them; times each kernel, its plain version and the
-   one PyTorch call that computes the same function at those path shapes,
-   in turns.  Then K4 (segment sum) the same way, at the Pallas test
-   shapes, an unsorted shape with out-of-range ids, and the two bundle
-   adjustment paths' shapes with their real segment ids;
+   the card, float32 and float64, at the test shapes, the shapes the two
+   main paths give them and shapes that reach every branch of K1's and
+   K2's tile DAG; times each kernel, its plain version and the one PyTorch
+   call that computes the same function at those path shapes, in turns,
+   and counts the operations one call puts on the card (kernels, memsets,
+   copies) with ``torch.profiler``.  Then K4 (segment sum) the same way, at
+   the Pallas test shapes, an unsorted shape with out-of-range ids, and the
+   two bundle adjustment paths' shapes with their real segment ids;
 4. main path, PCG: sphere2500 (``data/sphere2500.g2o``), Huber(1.0),
    float32 on the card, ``optimize_fused`` with
    ``PCGSolver(precond="chunk2")`` for 50 iterations at most after a
    warm-up; the final chi2 must be within 1% of the reference g2o's chi2
    after 50 iterations, every chi2 finite, and K1 and K2 launched during the
-   run; then the time per layer, and a save/reload round trip of the result;
+   run; then K1 and K2 on the run's real coarse matrix (its first λ-trial)
+   against their plain versions (``LLᵀ`` and ``L·L⁻¹`` residuals within 10×
+   the plain versions'), the time per layer, and a save/reload round trip
+   of the result;
 5. main path, supernodal: the same problem with
    ``SupernodalCholeskySolver()``, the direct multifrontal solver; the same
    chi2 bound, and K1, K2 and K3 launched during the run; then the time of
@@ -140,8 +145,13 @@ NEW_KERNELS = {"onehot_gather": ("onehot_gather", "onehot_gather_t"),
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# K1/K2/K3 against their plain versions: the Pallas test shapes, the
+# paths' shapes, and shapes that reach every branch of K1's and K2's 64 x 64
+# tile DAG: n one past a tile (65), a ragged large n with m != n and S > 1
+# (1000 = 15 tiles + 40, m = 37 < one tile), a larger single matrix (1536)
 SHAPES = [(7, 12, 5), (33, 48, 1), (5, 126, 96), (1, 960, 960),
-          (1, 672, 672), (55, 144, 144), (55, 144, 192), (55, 144, 1)]
+          (1, 672, 672), (55, 144, 144), (55, 144, 192), (55, 144, 1),
+          (3, 65, 65), (2, 1000, 37), (1, 1536, 1536)]
 # (S, n, m) the main paths give the kernels: the chunk2 coarse level (K1,
 # and K2 with B = I); the supernodal path's largest batch of 144-column
 # panels (K1 on the diagonal panels, K2 on the below-panel blocks, K2 and
@@ -197,11 +207,13 @@ def _shape(S, n, m):
     return f"{S}x{n}x{m}"
 
 
-def bound(name, shape, width=4):
+def bound(name, shape, width=4, rhs_identity=False):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``name`` at ``shape`` in a ``width``-byte float type — the larger of
     the bytes it must move (each input read once, each output written once)
-    over the memory rate, and its operations over the float32 rate."""
+    over the memory rate, and its operations over the float32 rate.  A
+    triangular solve against ``B = I`` (``rhs_identity``) needs n³/6
+    multiply-adds, not n²m/2: the inverse of a triangle is a triangle."""
     if name in ("segment_sum", "onehot_scatter_add", "onehot_gather"):
         # (N, D) rows and N int32 ids against an (S, D) table; the sum
         # adds N*D values, the gather only moves them
@@ -214,9 +226,27 @@ def bound(name, shape, width=4):
             nbytes, ops = 2 * S * n * n * width, 2 * S * n ** 3 / 3
         else:                      # n²m/2 multiply-adds
             nbytes, ops = (S * n * n + 2 * S * n * m) * width, S * n * n * m
+            if rhs_identity:
+                ops /= 3
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_ops(torch, fn):
+    """Operations one call of ``fn`` puts on the card (kernels, memsets,
+    copies), counted by ``torch.profiler`` after one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def _in_turns(torch, fns):
@@ -280,11 +310,12 @@ def kernel_phase(torch, ck):
                 for k, (kern, plain, lib) in fns.items():
                     t = _in_turns(torch, {"plain_ms": plain,
                                           "library_ms": lib, "ms": kern})
-                    b_ms, b_by = bound(k, (S, n, m))
+                    b_ms, b_by = bound(k, (S, n, m), rhs_identity=n == m)
                     res[k] = dict(max_abs_err=err[k], ms=t["ms"],
                                   plain_ms=t["plain_ms"],
                                   library_ms=t["library_ms"],
-                                  bound_ms=b_ms, bound_by=b_by)
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  device_ops_per_call=device_ops(torch, kern))
                 out[_shape(S, n, m)] = res
                 phase("kernel_times", shape=_shape(S, n, m), dtype=dname,
                       **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in res.items()},
@@ -293,6 +324,8 @@ def kernel_phase(torch, ck):
                       **{f"{k}_library_ms": f"{v['library_ms']:.4f}"
                          for k, v in res.items()},
                       **{f"{k}_bound_ms": f"{v['bound_ms']:.4f}"
+                         for k, v in res.items()},
+                      **{f"{k}_device_ops": v["device_ops_per_call"]
                          for k, v in res.items()})
     return out
 
@@ -475,14 +508,27 @@ def main_path_phase(torch, g2o, wrappers):
     est0 = {t: v.clone() for t, v in p.estimates.items()}
     solver = g2o.PCGSolver(max_iter=50, tol=1e-1, precond="chunk2",
                            chunk_size=16)
+    # keep the coarse matrix of the first λ-trial for coarse_matrix_check
+    coarse, assemble = [], solver._assemble_coarse
+
+    def assemble_and_keep(*args):
+        Hd = assemble(*args)
+        if not coarse:
+            coarse.append(Hd.clone())
+        return Hd
+
+    solver._assemble_coarse = assemble_and_keep
     res, launches = _run_lm(torch, g2o, wrappers, p, est0, solver,
                             "main_path",
                             need=("chol_batched", "solve_lower_batched"))
+    del solver._assemble_coarse
+    coarse_matrix_check(torch, coarse[0])
     n = res["iterations"]
     lt = layer_times(torch, p, solver, res["lambda_final"])
     phase("layers", **{k: f"{v:.3f}" for k, v in lt.items()},
           cg_iterations_per_lm_iteration=
-          f"{sum(res['cg_per_iteration']) / max(n, 1):.2f}")
+          f"{sum(res['cg_per_iteration']) / max(n, 1):.2f}",
+          cg_per_iteration=",".join(map(str, res["cg_per_iteration"])))
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sphere2500_opt.g2o")
@@ -512,6 +558,38 @@ def main_path_phase(torch, g2o, wrappers):
     phase("layers_supernodal", **{k: f"{v:.3e}" if "residual" in k
                                   else f"{v:.3f}" for k, v in lt.items()})
     return {"chunk2": launches, "supernodal": launches_sn}
+
+
+def coarse_matrix_check(torch, Hd):
+    """K1 and K2 on the chunk2 path's real coarse matrix ``Hd`` (f32, its
+    first λ-trial), against their plain versions: factor, form ``L⁻¹``
+    (B = I), and hold ``max|LLᵀ − Hd| / max|Hd|`` and ``max|L·Y − I|``
+    (products in float64) of the kernels within 10× the plain versions'."""
+    from g2o_tpu_torch.ops import chol_kernels as ck
+
+    n = Hd.shape[0]
+    D = Hd[None].contiguous()
+    eye = torch.eye(n, dtype=Hd.dtype, device=Hd.device)[None]
+    H64, I64 = Hd.double(), torch.eye(n, dtype=torch.float64,
+                                       device=Hd.device)
+    res = {}
+    for route, chol, solve in (
+            ("kernel", ck.chol_batched, ck.solve_lower_batched),
+            ("plain", ck.chol_batched_plain, ck.solve_lower_batched_plain)):
+        L = chol(D).contiguous()
+        Y = solve(L, eye)
+        L64, Y64 = L[0].double(), Y[0].double()
+        res[f"{route}_llt_residual"] = float(
+            (L64 @ L64.T - H64).abs().max() / H64.abs().max())
+        res[f"{route}_ly_residual"] = float((L64 @ Y64 - I64).abs().max())
+    phase("coarse_matrix", n=n, dtype=str(Hd.dtype).split(".")[1],
+          max_abs=f"{float(H64.abs().max()):.4e}",
+          **{k: f"{v:.3e}" for k, v in res.items()}, limit="10x_plain")
+    for which in ("llt", "ly"):
+        got, ref = res[f"kernel_{which}_residual"], res[f"plain_{which}_residual"]
+        if not (math.isfinite(got) and got <= 10 * ref):
+            raise RuntimeError(f"K1/K2 on the real coarse matrix: {which} "
+                               f"residual {got} against the plain {ref}")
 
 
 def supernodal_layer_times(torch, p, solver, lam):

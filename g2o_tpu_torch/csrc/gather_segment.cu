@@ -63,28 +63,14 @@
 
 #include <atomic>
 
+#include "device_sms.cuh"
+
 namespace {
 
 constexpr int THREADS = 1024;
 constexpr int STATIC_SMEM = 48 * 1024;          // without an opt-in
 constexpr int SCATTER_BUDGET = 96 * 1024;       // two blocks on one SM
 constexpr int UNROLL = 4;                       // elements per thread per pass
-constexpr int MAX_DEVICES = 64;
-
-// the current device and its SM count, read from the driver once per device
-int device_sms(int* dev, int* sms) {
-  static std::atomic<int> cache[MAX_DEVICES];
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return (int)err;
-  if (*dev < 0 || *dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  *sms = cache[*dev].load(std::memory_order_relaxed);
-  if (*sms == 0) {
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
-    if (err != cudaSuccess) return (int)err;
-    cache[*dev].store(*sms, std::memory_order_relaxed);
-  }
-  return 0;
-}
 
 // flat element i of an (N, W) row-major or, dims_major, (W, N) array ->
 // (row n, column c)

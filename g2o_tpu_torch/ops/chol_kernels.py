@@ -13,7 +13,10 @@ each wrapper is its plain PyTorch version:
   it);
 * on a CUDA tensor it launches the kernel, or raises — it never falls back.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.  K1 and
+K2 take an int32 scratch of tile flags that the wrapper allocates, of the
+length the library gives (``g2o_chol_scratch_len``,
+``g2o_solve_lower_scratch_len``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,10 @@ _PKG = os.path.dirname(_HERE)
 # library name -> CUDA source; each builds into lib<name>_<hash>.so
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("batched_chol", "segment_sum", "gather_segment")}
+# the headers of csrc/ that the sources include
+HEADERS = sorted(os.path.join(_PKG, "csrc", f)
+                 for f in os.listdir(os.path.join(_PKG, "csrc"))
+                 if f.endswith(".cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -50,11 +57,13 @@ def _nvcc():
 
 def _target(name):
     """Path of library ``name``'s build; the file name carries a hash of
-    the source and flags, so an edited source is rebuilt."""
-    with open(SOURCES[name], "rb") as fh:
-        src = fh.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    the source, the headers it may include and the flags, so an edited
+    source or header is rebuilt."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (SOURCES[name], *HEADERS):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 def build(*names) -> list:
@@ -90,18 +99,24 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build("batched_chol")[0])
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name in ("g2o_chol_batched_f32", "g2o_chol_batched_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, ci, ci, vp]
-            fn.restype = ci
-        for name in ("g2o_solve_lower_batched_f32",
-                     "g2o_solve_lower_batched_f64",
-                     "g2o_solve_upper_batched_f32",
-                     "g2o_solve_upper_batched_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-            fn.restype = ci
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        argtypes = {
+            # out, D, scratch, scratch length, S, n, stream
+            "g2o_chol_batched": [vp, vp, vp, cl, ci, ci, vp],
+            # L, B, Y, scratch, scratch length, S, n, m, stream
+            "g2o_solve_lower_batched": [vp, vp, vp, vp, cl, ci, ci, ci, vp],
+            # L, B, X, S, n, m, stream
+            "g2o_solve_upper_batched": [vp, vp, vp, ci, ci, ci, vp]}
+        for name, args in argtypes.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = args
+                fn.restype = ci
+        # scratch lengths: (S, n) and (S, n, m)
+        for name, args in (("g2o_chol_scratch_len", [ci, ci]),
+                           ("g2o_solve_lower_scratch_len", [ci, ci, ci])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = cl
         _lib = lib
     return _lib
 
@@ -158,9 +173,14 @@ def chol_batched(D):
     out = torch.empty_like(D)
     if S == 0 or n == 0:
         return out
-    fn = getattr(_load(), f"g2o_chol_batched_{_SUFFIX[D.dtype]}")
+    lib = _load()
+    fn = getattr(lib, f"g2o_chol_batched_{_SUFFIX[D.dtype]}")
+    # the kernel's entry zeroes the scratch on the stream
+    flags = torch.empty(lib.g2o_chol_scratch_len(S, n), dtype=torch.int32,
+                        device=D.device)
     with torch.cuda.device(D.device):
-        err = fn(out.data_ptr(), D.data_ptr(), S, n, _stream(D.device))
+        err = fn(out.data_ptr(), D.data_ptr(), flags.data_ptr(), flags.numel(),
+                 S, n, _stream(D.device))
     if err:
         raise RuntimeError(f"chol_batched kernel failed: CUDA error {err}")
     chol_batched.launches += 1
@@ -190,9 +210,16 @@ def _launch_solve(wrapper, L, B):
     out = torch.empty_like(B)
     if S == 0 or n == 0 or m == 0:
         return out
-    fn = getattr(_load(), f"g2o_{name}_{_SUFFIX[L.dtype]}")
+    lib = _load()
+    fn = getattr(lib, f"g2o_{name}_{_SUFFIX[L.dtype]}")
+    # K2 takes a scratch of tile flags (its entry zeroes it), K3 none
+    scratch = ()
+    if wrapper is solve_lower_batched:
+        flags = torch.empty(lib.g2o_solve_lower_scratch_len(S, n, m),
+                            dtype=torch.int32, device=L.device)
+        scratch = (flags.data_ptr(), flags.numel())
     with torch.cuda.device(L.device):
-        err = fn(L.data_ptr(), B.data_ptr(), out.data_ptr(), S, n, m,
+        err = fn(L.data_ptr(), B.data_ptr(), out.data_ptr(), *scratch, S, n, m,
                  _stream(L.device))
     if err:
         raise RuntimeError(f"{name} kernel failed: CUDA error {err}")

@@ -5,7 +5,8 @@ On the CPU the wrappers run their plain PyTorch versions, held here against
 the Pallas kernels in interpret mode at the shapes of
 ``tests/test_pallas_chol.py`` (tolerances as there, relative to the f32
 inputs' scale), and the dispatchers of ``core/solvers/supernodal.py``
-against the JAX package's at (1, 192, 192), d = 6 (float64, rtol 1e-12).
+against the JAX package's d-blocked path at (1, 192, 192), d = 6, and at
+the chunk2 coarse level (1, 960, 960), d = 96 (float64, rtol 1e-12).
 The kernel-vs-plain cases on the card are in ``test_torch_cuda.py``."""
 
 import jax
@@ -53,27 +54,41 @@ def test_plain_versions_match_pallas_kernels(S, n, m):
     assert np.abs(Lt - Lref).max() <= 5e-6 * np.abs(Lref).max()
 
 
-def test_dispatch_matches_supernodal_blocked_path():
-    """sd = 192 > 96 with sd % d == 0: the JAX package runs its d-blocked
-    emulation, the port its kernel wrappers (plain version on the CPU)."""
+@pytest.mark.parametrize("sd,d,scaled", [
+    pytest.param(192, 6, False, id="192-6"),
+    pytest.param(960, 96, True, id="960-96")])
+def test_dispatch_matches_supernodal_blocked_path(sd, d, scaled):
+    """sd > 96 with sd % d == 0: the JAX package runs its d-blocked
+    emulation, the port its kernel wrappers (plain version on the CPU).
+    (960, 96) is the chunk2 coarse level (``pcg.py`` factors and inverts
+    it with d = 96): the factor, ``L⁻¹`` and ``Hc⁻¹ = L⁻ᵀL⁻¹`` as the port
+    forms them.  Float64; both are LAPACK-grade factorizations summed in
+    other orders, so entries agree to 1e-12 relative plus an absolute
+    1e-13 — of the largest entry where ``scaled`` (the 960 case's L and
+    L⁻¹), for Hc⁻¹ and for X."""
     rng = np.random.default_rng(1)
-    D = _spd(rng, 1, 192, np.float64)
-    B = np.eye(192)[None]
+    D = _spd(rng, 1, sd, np.float64)
+    B = np.eye(sd)[None]
     Lj = np.asarray(jax.jit(jsn._chol_batched, static_argnums=1)(
-        jnp.asarray(D), 6))
+        jnp.asarray(D), d))
     Yj = np.asarray(jax.jit(jsn._solve_lower_batched, static_argnums=2)(
-        jnp.asarray(Lj), jnp.asarray(B), 6))
-    Bv = rng.standard_normal((1, 192, 3))
+        jnp.asarray(Lj), jnp.asarray(B), d))
+    Bv = rng.standard_normal((1, sd, 3))
     Xj = np.asarray(jax.jit(jsn._solve_upper_batched, static_argnums=2)(
-        jnp.asarray(Lj), jnp.asarray(Bv), 6))
+        jnp.asarray(Lj), jnp.asarray(Bv), d))
     before = (chol_kernels.chol_batched.launches,
               chol_kernels.solve_lower_batched.launches,
               chol_kernels.solve_upper_batched.launches)
-    Lt = tsn._chol_batched(torch.as_tensor(D), 6)
-    Yt = tsn._solve_lower_batched(Lt, torch.as_tensor(B), 6)
-    Xt = tsn._solve_upper_batched(Lt, torch.as_tensor(Bv), 6)
-    np.testing.assert_allclose(Lt.numpy(), Lj, rtol=1e-12, atol=1e-13)
-    np.testing.assert_allclose(Yt.numpy(), Yj, rtol=1e-12, atol=1e-13)
+    Lt = tsn._chol_batched(torch.as_tensor(D), d)
+    Yt = tsn._solve_lower_batched(Lt, torch.as_tensor(B), d)
+    Xt = tsn._solve_upper_batched(Lt, torch.as_tensor(Bv), d)
+    for got, want in ((Lt.numpy(), Lj), (Yt.numpy(), Yj)):
+        np.testing.assert_allclose(
+            got, want, rtol=1e-12,
+            atol=1e-13 * (np.abs(want).max() if scaled else 1.0))
+    Hinv = Yj[0].T @ Yj[0]
+    np.testing.assert_allclose((Yt[0].T @ Yt[0]).numpy(), Hinv, rtol=1e-12,
+                               atol=1e-13 * np.abs(Hinv).max())
     np.testing.assert_allclose(Xt.numpy(), Xj, rtol=1e-12,
                                atol=1e-13 * np.abs(Xj).max())
     # CPU tensors never count as kernel launches

@@ -41,7 +41,11 @@ def _need_card():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.float64, 1e-11)])
 @pytest.mark.parametrize("S,n,m", [(7, 12, 5), (33, 48, 1), (5, 126, 96),
-                                   (1, 960, 960), (1, 672, 672)])
+                                   (1, 960, 960), (1, 672, 672),
+                                   # K1/K2's 64-wide tiles: one past a tile,
+                                   # ragged n with m < one tile, 24 tiles
+                                   (3, 65, 65), (2, 1000, 37),
+                                   (1, 1536, 1536)])
 def test_kernel_matches_plain_on_card(S, n, m, dtype, tol):
     _need_card()
     rng = np.random.default_rng(3)
@@ -69,6 +73,51 @@ def test_kernel_matches_plain_on_card(S, n, m, dtype, tol):
     assert (Y - Yp).abs().max() <= tol * Yp.abs().max()
     assert (X - Xp).abs().max() <= tol * Xp.abs().max()
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_not_positive_definite_gives_nan_on_card(dtype):
+    """A negative pivot in the third tile column: NaN from there on, as the
+    plain version's NaN factor, so an LM trial fails on a non-finite chi2."""
+    _need_card()
+    D = torch.eye(200, dtype=dtype, device="cuda")[None].repeat(2, 1, 1)
+    D[1, 150, 150] = -1.0
+    L = chol_kernels.chol_batched(D)
+    torch.cuda.synchronize()
+    assert torch.equal(L[0], D[0])
+    assert bool(torch.isnan(L[1, 150:, 150:].diagonal()).all())
+    assert bool(torch.isnan(chol_kernels.chol_batched_plain(D)[1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_lower_spreads_nan_of_factor_on_card(dtype):
+    """K2 skips a tile it finds zero only where L is finite.  B = I; matrix
+    0 has a NaN on the diagonal of its third tile, matrix 1 one below the
+    diagonal in its second tile row.  NaN comes out where the plain version
+    gives it, among them tiles whose B block and Y tiles above are zero
+    ((2, 3) of matrix 0, (1, 2) of matrix 1); the finite entries match."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    S, n = 2, 200
+    A = rng.standard_normal((S, n, n))
+    D = torch.as_tensor(A @ A.transpose(0, 2, 1) + n * np.eye(n),
+                        dtype=dtype, device="cuda")
+    L = torch.linalg.cholesky(D).contiguous()
+    L[0, 150, 150] = float("nan")
+    L[1, 100, 20] = float("nan")
+    B = torch.eye(n, dtype=dtype, device="cuda").expand(S, n, n).contiguous()
+    Y = chol_kernels.solve_lower_batched(L, B)
+    want = chol_kernels.solve_lower_batched_plain(L, B)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[0, 150:192, 195]).all())
+    assert bool(torch.isnan(want[1, 100:128, 150]).all())
+    assert torch.equal(torch.isnan(Y), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    tol = 2e-5 if dtype == torch.float32 else 1e-11
+    err = (Y[fin] - want[fin]).abs().max() / want[fin].abs().max()
+    assert float(err) <= tol
 
 
 @pytest.mark.cuda
