@@ -48,10 +48,14 @@ exits non-zero without printing a result:
    their plain versions, float32 and float64, row-major and dims-major, at
    the Pallas test shape, unsorted shapes with out-of-range ids (among them
    20,000 and 70,000 segments, on each side of the segment sum's
-   shared-memory limit), and the implicit Schur paths' shapes with their solvers' own ids (the Venice
-   camera ids; the runtime-bucketed ladybug ids with their sentinel);
-   timed beside the plain version and one ``index_select``/``index_add``
-   at those path shapes;
+   shared-memory limit), and the implicit Schur paths' shapes with their
+   solvers' own ids (the slab-ordered camera ids of the dims-major Venice,
+   ladybug and stress paths; the runtime-bucketed ladybug ids with their
+   sentinel); timed beside the plain version and one
+   ``index_select``/``index_add`` at those path shapes, with the device µs
+   and device operations of one call (``torch.profiler``); the row-major
+   gather and segment sum (K7, K8) must put one operation on the card per
+   call at the runtime-bucketed ladybug shape;
 8. main paths, implicit Schur: ``ImplicitSchurSolver`` with ``bench.py``'s
    settings, 10 LM iterations after a warm-up, float32, every camera free:
    ladybug, Venice (``bal-C800-P150000-K6``, with gauge deflation) and
@@ -135,6 +139,9 @@ IMPLICIT_PATHS = {
                                  layout="bucketed"),
                      bound=48790.33 * 1.01, ref_ms=41.6),
 }
+# the row-major wrappers (K7, K8) that put one operation per call on the
+# card at the runtime-bucketed ladybug shape
+RUNTIME_ONE_OP = ("onehot_gather", "onehot_scatter_add")
 ONEHOT = ("onehot_gather", "onehot_gather_t", "onehot_scatter_add",
           "onehot_scatter_add_t")
 # the JSON line's entry of each new kernel, and the wrappers that launch it
@@ -233,29 +240,49 @@ def bound(name, shape, width=4, rhs_identity=False):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_ops(torch, fn):
-    """Operations one call of ``fn`` puts on the card (kernels, memsets,
-    copies), counted by ``torch.profiler`` after one warm call."""
+def device_profile(torch, fn, calls=10, tries=3):
+    """``(device µs, device operations)`` per call of ``fn``, from the
+    device-side events (kernels, memsets, copies) that ``torch.profiler``
+    records over ``calls`` calls after one warm call.  The tracer may drop
+    events of a window (on the H100, 9 of 10 one-kernel calls, and once
+    every event of a window), so the operations per call are the events
+    per call rounded, the time per call is the mean event's time times
+    that count, and a window with no events is traced again, up to
+    ``tries`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        n = sum(e.count for e in ev)
+        if n:
+            ops = round(n / calls)
+            return sum(e.self_device_time_total for e in ev) / n * ops, ops
+    return 0.0, 0
 
 
-def _in_turns(torch, fns):
+def device_ops(torch, fn):
+    """Operations one call of ``fn`` puts on the card (kernels, memsets,
+    copies), counted by ``torch.profiler`` after one warm call."""
+    return device_profile(torch, fn)[1]
+
+
+def _in_turns(torch, fns, reps=20, rounds=2):
     """Median ms of each of ``fns`` ({which: fn}), timed in turns: the
-    given order, then reversed."""
+    given order, then reversed, ``rounds`` times in all; ``reps`` calls per
+    timing window."""
     t = {k: [] for k in fns}
-    for order in (list(fns), list(fns)[::-1]):
-        for k in order:
-            t[k].append(_time_ms(torch, fns[k]))
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            t[k].append(_time_ms(torch, fns[k], reps))
     return {k: float(np.median(v)) for k, v in t.items()}
 
 
@@ -435,13 +462,18 @@ def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5):
     kern = sorted(((e.self_device_time_total, e.key, e.count) for e in ka
                    if e.device_type == DeviceType.CUDA), reverse=True)
     dev_ms = sum(k[0] for k in kern) / 1e3 / trials
+    # kernel launches on the host (cooperative ones included), and every
+    # operation on the card: kernels, memsets, copies
     launches = sum(e.count for e in ka if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cudaLaunchCooperativeKernel"))
+    dev_ops = sum(k[2] for k in kern)
     phase(f"trace_{tag}", iterations=iters, lm_trials=trials,
           device_ms_per_lambda_trial=f"{dev_ms:.3f}",
           untraced_ms_per_lambda_trial=f"{ms_per_trial:.3f}",
           device_busy_share=f"{dev_ms / ms_per_trial:.4f}",
           kernel_launches_per_lambda_trial=f"{launches / trials:.1f}",
+          device_ops_per_lambda_trial=f"{dev_ops / trials:.1f}",
           top=";".join(f"{k[:48].replace(' ', '_')}:{us / 1e3:.3f}ms/{n}"
                        for us, k, n in kern[:8]))
     if not kern:
@@ -772,17 +804,19 @@ def load_implicit(torch, g2o):
 
 def _path_ids(implicit):
     """``{kind: (ids, S)}``: the camera ids the implicit paths hand the
-    gather and segment-sum kernels — the Venice file's slab-ordered ids
-    and the runtime-bucketed ladybug ids, whose padded slots carry the
-    sentinel ``S``."""
-    name = "EDGE_OBSERVATION_BAL"
-    p, _, _ = implicit["_venice"]
-    nb = p.bucket_specs[name].n_rows
-    venice = (p.data.plans[name]["ids32"][0, :nb], p.counts[
-        "VERTEX_CAMERA_BAL"])
+    gather and segment-sum kernels — the slab-ordered ids of the three
+    dims-major paths (Venice, ladybug, stress) and the runtime-bucketed
+    ladybug ids, whose padded slots carry the sentinel ``S``."""
+    name, cam = "EDGE_OBSERVATION_BAL", "VERTEX_CAMERA_BAL"
+    out = {}
+    for kind, suffix in (("venice", "_venice"), ("ladybug_dm", ""),
+                         ("stress_dm", "_stress")):
+        p, _, _ = implicit[suffix]
+        nb = p.bucket_specs[name].n_rows
+        out[kind] = (p.data.plans[name]["ids32"][0, :nb], p.counts[cam])
     p, solver, _ = implicit["_runtime"]
-    runtime = (solver.aux[name]["cam"], p.counts["VERTEX_CAMERA_BAL"])
-    return {"venice": venice, "ladybug_runtime": runtime}
+    out["ladybug_runtime"] = (solver.aux[name]["cam"], p.counts[cam])
+    return out
 
 
 def onehot_kernel_phase(torch, oh, implicit):
@@ -792,7 +826,9 @@ def onehot_kernel_phase(torch, oh, implicit):
     implicit paths' shapes with their solvers' ids (D = 9 for the camera
     states, b and the CG vectors, D = 81 for the camera diagonal blocks);
     at the path shapes in float32 times kernel, plain version and one
-    ``index_select`` / ``index_add`` into ``S+1`` rows, in turns.  Returns
+    ``index_select`` / ``index_add`` into ``S+1`` rows, in turns (six
+    windows of 200 calls a side, the median), with the device µs and
+    operations of one call.  Returns
     ``{shape: {kernel: {...}}}``."""
     rng = np.random.default_rng(2)
     path_ids = _path_ids(implicit)
@@ -863,20 +899,34 @@ def onehot_kernel_phase(torch, oh, implicit):
                    "onehot_scatter_add_t": lambda: torch.index_add(
                        Zt, 1, ids, rows_t)}
             for k, (kern, plain) in fns.items():
+                # a call here is 15-25 µs of host time, and windows of the
+                # shared host vary by a third: 200 calls per window and the
+                # median of six windows a side
                 t = _in_turns(torch, {"plain_ms": plain,
-                                      "library_ms": lib[k], "ms": kern})
+                                      "library_ms": lib[k], "ms": kern},
+                              reps=200, rounds=6)
+                dev_us, ops = device_profile(torch, kern)
                 entry = "onehot_gather" if "gather" in k else \
                     "onehot_scatter_add"
                 b_ms, b_by = bound(entry, (N, D, S))
                 key = f"{kind}:{k}:{shape}"
                 out[key] = {entry: dict(
                     max_abs_err=err[k], ms=t["ms"], plain_ms=t["plain_ms"],
-                    library_ms=t["library_ms"], bound_ms=b_ms, bound_by=b_by)}
+                    library_ms=t["library_ms"], bound_ms=b_ms, bound_by=b_by,
+                    device_us_per_call=dev_us, device_ops_per_call=ops)}
                 phase("kernel_times", kernel=k, path=kind, shape=shape,
                       dtype=dname, ms=f"{t['ms']:.4f}",
                       plain_ms=f"{t['plain_ms']:.4f}",
                       library_ms=f"{t['library_ms']:.4f}",
-                      bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+                      bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                      device_us_per_call=f"{dev_us:.2f}",
+                      device_ops_per_call=ops)
+                # K7 and K8 at the runtime-bucketed shape: one operation
+                # on the card per call (no memset beside the kernel)
+                if kind == "ladybug_runtime" and D == 9 and \
+                        k in RUNTIME_ONE_OP and ops != 1:
+                    raise RuntimeError(f"{k} at {shape} puts {ops} "
+                                       f"operations on the card per call")
     return out
 
 

@@ -89,10 +89,10 @@ def _parse_line(g, registry, parts, lineno, fix_ids):
     pos += et.meas_dim
     r = et.residual_dim
     ninfo = r * (r + 1) // 2
+    # values past the information triangle are ignored, as the reference's
+    # per-edge read does
     info = upper_triangular_to_full(
         _floats(parts[pos:], ninfo, f"{tag} information"), r)
-    if len(parts) > pos + ninfo:
-        raise ValueError(f"{tag}: {len(parts) - pos - ninfo} trailing values")
     g.add_edge(et, vids, meas, info, param_id=param_id)
 
 

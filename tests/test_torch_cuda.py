@@ -210,25 +210,54 @@ def test_segment_sum_rejects_bad_input_on_card():
                                                 device="cuda"), 2)
 
 
+# the most segments of 9 values the segment sum takes in one launch
+_S_AT_LIMIT = onehot.ROWSUM_MAX_CELLS // 9
+# (n, s, d, lo, hi, offset): n rows with ids drawn from [lo, hi), s
+# segments of width d; offset > 0 takes the rows and the table as views
+# that start `offset` rows into a larger tensor (contiguous, but their
+# data_ptr is not 16-byte aligned)
+_ONEHOT_CASES = [
+    (700, 37, 5, 0, 40, 0),                 # the test_pallas.py shape
+    (700, 37, 9, -3, 42, 0),                # out-of-range ids both sides
+    (5000, 300, 81, -3, 305, 0),            # table past 48 KB: __ldg path
+    (200000, 800, 81, 0, 801, 0),           # Venice widths, tiled D
+    (300000, 20000, 9, -3, 20005, 0),       # f32 shared, f64 global sum
+    (300000, 70000, 9, -3, 70005, 0),       # past a shared column: global
+    # the row-major small-table gather and the one-launch segment sum
+    (35000, 49, 9, 0, 50, 0),               # ladybug runtime, sentinel S
+    (1000, 1, 9, -1, 3, 0),                 # S = 1
+    (5000, 49, 9, 49, 60, 0),               # every id out of range
+    (1001, 49, 9, -2, 52, 0),               # N*D not a multiple of 4
+    (35000, 49, 9, 0, 50, 1),               # rows[1:]: unaligned data_ptr
+    (999, 7, 3, -1, 9, 3),                  # unaligned, D = 3
+    (_S_AT_LIMIT, _S_AT_LIMIT, 9, 0, _S_AT_LIMIT + 1, 0),  # S*D at the limit
+    (_S_AT_LIMIT, _S_AT_LIMIT + 1, 9, 0, _S_AT_LIMIT + 2, 0),  # past it
+]
+
+
+def _case_id(case):
+    name = "-".join(map(str, case[:5]))
+    return name + (f"-offset{case[5]}" if case[5] else "")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.float64, 1e-11)])
-@pytest.mark.parametrize("n,s,d,lo,hi", [
-    (700, 37, 5, 0, 40),                    # the test_pallas.py shape
-    (700, 37, 9, -3, 42),                   # out-of-range ids both sides
-    (5000, 300, 81, -3, 305),               # table past 48 KB: __ldg path
-    (200000, 800, 81, 0, 801),              # Venice widths, tiled D
-    (300000, 20000, 9, -3, 20005),          # f32 shared, f64 global sum
-    (300000, 70000, 9, -3, 70005)])         # past a shared column: global
-def test_onehot_kernels_match_plain_on_card(n, s, d, lo, hi, dtype, tol):
+@pytest.mark.parametrize("n,s,d,lo,hi,offset", [
+    pytest.param(*c, id=_case_id(c)) for c in _ONEHOT_CASES])
+def test_onehot_kernels_match_plain_on_card(n, s, d, lo, hi, offset, dtype,
+                                            tol):
     _need_card()
     rng = np.random.default_rng(n + d)
     ids = torch.as_tensor(rng.integers(lo, hi, size=n).astype(np.int32),
                           device="cuda")
-    table = torch.as_tensor(rng.standard_normal((s, d)), dtype=dtype,
-                            device="cuda")
-    rows = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype,
-                           device="cuda")
+    table = torch.as_tensor(rng.standard_normal((s + offset, d)), dtype=dtype,
+                            device="cuda")[offset:]
+    rows = torch.as_tensor(rng.standard_normal((n + offset, d)), dtype=dtype,
+                           device="cuda")[offset:]
+    assert rows.is_contiguous() and table.is_contiguous()
+    if offset:
+        assert rows.data_ptr() % 16 and table.data_ptr() % 16
     rows_t = rows.T.contiguous()
     wrappers = (onehot.onehot_gather, onehot.onehot_gather_t,
                 onehot.onehot_scatter_add, onehot.onehot_scatter_add_t)
@@ -246,6 +275,174 @@ def test_onehot_kernels_match_plain_on_card(n, s, d, lo, hi, dtype, tol):
     for a, b in zip(got[2:], want[2:]):
         assert a.shape == b.shape == (s, d)
         assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+def _device_ops(fn, calls=10, tries=3):
+    """Operations one call of ``fn`` puts on the card: torch.profiler's
+    device events over ``calls`` calls, per call, rounded (the tracer may
+    drop events of a window; a window with none is traced again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return round(n / calls)
+    return 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,s,d,ops", [
+    (35000, 49, 9, 1),          # ladybug runtime: the kernel alone
+    (1001, 1, 9, 1),
+    (4000, _S_AT_LIMIT, 9, 1),  # S*D at the limit
+    (4000, _S_AT_LIMIT + 1, 9, 2),  # past it: memset + kernel
+    (198088, 120, 81, 2),       # the stress file's camera blocks
+    (30000, 70000, 9, 2),       # past a shared column: memset + kernel
+])
+def test_onehot_segment_sum_device_operations_on_card(n, s, d, ops, dtype):
+    """The row-major segment sum puts one operation on the card while
+    S*D <= ROWSUM_MAX_CELLS (no memset: the kernel stores every cell) and a
+    memset and a kernel past it; the dims-major one a memset and a kernel;
+    the gathers one.  Repeated calls agree with the plain version."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    ids = torch.as_tensor(rng.integers(-1, s + 1, size=n).astype(np.int32),
+                          device="cuda")
+    rows = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype,
+                           device="cuda")
+    rows_t = rows.T.contiguous()
+    table = rows[:s] if s <= n else rows.new_ones((s, d))
+    tol = 2e-5 if dtype == torch.float32 else 1e-11
+    want = onehot.onehot_scatter_add_plain(ids, rows, s)
+    for fn, n_ops in ((lambda: onehot.onehot_scatter_add(ids, rows, s), ops),
+                      (lambda: onehot.onehot_scatter_add_t(ids, rows_t, s),
+                       2)):
+        assert _device_ops(fn) == n_ops
+        for _ in range(3):
+            assert (fn() - want).abs().max() <= tol * want.abs().max()
+    for fn in (lambda: onehot.onehot_gather(ids, table),
+               lambda: onehot.onehot_gather_t(ids, table)):
+        assert _device_ops(fn) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,s", [(35000, 49), (4000, _S_AT_LIMIT), (7, 3)])
+def test_onehot_segment_sum_is_bit_identical_on_card(n, s, dtype):
+    """The row-major one-launch segment sum adds in a fixed order: calls on
+    the same inputs give the same bits."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    ids = torch.as_tensor(rng.integers(-1, s + 1, size=n).astype(np.int32),
+                          device="cuda")
+    rows = torch.as_tensor(rng.standard_normal((n, 9)), dtype=dtype,
+                           device="cuda")
+    first = onehot.onehot_scatter_add(ids, rows, s)
+    for _ in range(5):
+        assert torch.equal(onehot.onehot_scatter_add(ids, rows, s), first)
+
+
+def _graph_case(rng, n=35000, s=49, d=9):
+    ids = torch.as_tensor(rng.integers(0, s + 1, size=n).astype(np.int32),
+                          device="cuda")
+    return ids, torch.zeros((n, d), device="cuda"), s
+
+
+@pytest.mark.cuda
+def test_onehot_segment_sum_replays_in_a_cuda_graph_on_card():
+    """The one-launch segment sum captured by the usual recipe (warm up on
+    a side stream, then ``torch.cuda.graph(g)`` on its own capture stream):
+    each replay on new values gives their sums."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    ids, rows, s = _graph_case(rng)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        onehot.onehot_scatter_add(ids, rows, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = onehot.onehot_scatter_add(ids, rows, s)
+    for _ in range(3):
+        rows.copy_(torch.as_tensor(rng.standard_normal(tuple(rows.shape)),
+                                   dtype=torch.float32, device="cuda"))
+        graph.replay()
+        want = onehot.onehot_scatter_add_plain(ids, rows, s)
+        torch.cuda.synchronize()
+        assert (out - want).abs().max() <= 2e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_onehot_segment_sum_graphs_replay_concurrently_on_card():
+    """Two captured graphs of the one-launch segment sum, replayed at once
+    on two streams beside eager calls on two more, each many times: every
+    sum is right (each graph keeps its own partials, each stream's eager
+    calls their own)."""
+    _need_card()
+    rng = np.random.default_rng(10)
+    cases = [_graph_case(rng, n, s) for n, s in ((35000, 49), (20000, 60))]
+    graphs, outs = [], []
+    for ids, rows, s in cases:
+        rows.copy_(torch.as_tensor(rng.standard_normal(tuple(rows.shape)),
+                                   dtype=torch.float32, device="cuda"))
+        onehot.onehot_scatter_add(ids, rows, s)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            outs.append(onehot.onehot_scatter_add(ids, rows, s))
+        graphs.append(g)
+    torch.cuda.synchronize()
+    wants = [onehot.onehot_scatter_add_plain(ids, rows, s)
+             for ids, rows, s in cases]
+    streams = [torch.cuda.Stream() for _ in range(4)]
+    eager = []
+    for _ in range(50):
+        for g, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                g.replay()
+        for k, st in enumerate(streams[2:]):
+            with torch.cuda.stream(st):
+                eager.append((k, onehot.onehot_scatter_add(*cases[k])))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        assert (got - want).abs().max() <= 2e-5 * want.abs().max()
+    for k, got in eager:
+        assert (got - wants[k]).abs().max() <= 2e-5 * wants[k].abs().max()
+
+
+@pytest.mark.cuda
+def test_onehot_row_gather_refuses_an_unaligned_output_on_card():
+    """The row-major small-table gather writes 16-byte stores: its C entry
+    returns an error for an ``out`` that is not 16-byte aligned (the
+    wrapper's output always is) and takes an aligned one."""
+    _need_card()
+    onehot._load()
+    fn = onehot._FNS["gather", torch.float32]
+    rng = np.random.default_rng(12)
+    n, s, d = 1001, 49, 9
+    ids = torch.as_tensor(rng.integers(-1, s + 1, size=n).astype(np.int32),
+                          device="cuda")
+    table = torch.as_tensor(rng.standard_normal((s, d)), dtype=torch.float32,
+                            device="cuda")
+    buf = torch.full((n * d + 4,), float("nan"), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for offset, ok in ((0, True), (1, False), (2, False), (4, True)):
+        err = fn(table.data_ptr(), ids.data_ptr(), buf[offset:].data_ptr(),
+                 n, s, d, 0, stream)
+        assert (err == 0) == ok
+        if ok:
+            got = buf[offset:offset + n * d].view(n, d)
+            assert torch.equal(got, onehot.onehot_gather_plain(ids, table))
 
 
 @pytest.mark.cuda

@@ -106,6 +106,41 @@ def test_loader_reads_what_jax_reads(text):
     assert tio.dumps(tg) == jio.dumps(jg)
 
 
+_TWO_POSES = ("VERTEX_SE3:QUAT 0 0 0 0 0 0 0 1\n"
+              "VERTEX_SE3:QUAT 1 1 0.5 -0.25 0 0 0.6 0.8\n")
+_EDGE_HEAD = "EDGE_SE3:QUAT 0 1 1 0.5 -0.25 0.1 -0.2 0.3 0.9273618495495703 "
+_TRIANGLE = [10.0 + i * 0.5 for i in range(21)]
+
+
+def test_loader_ignores_trailing_values_as_jax_does():
+    """An edge line with a number past its information triangle loads in
+    both packages, to the same ids, measurement and information (float64,
+    exactly)."""
+    text = (_TWO_POSES + _EDGE_HEAD
+            + " ".join(repr(v) for v in _TRIANGLE) + " 7.5\n")
+    jg, tg = jio.loads(text), tio.loads(text)
+    assert sorted(tg.vertices()) == sorted(jg.vertices()) == [0, 1]
+    (te,), (je,) = tg.edges(), jg.edges()
+    assert te.vids == je.vids == (0, 1)
+    for a, b in ((te.measurement, je.measurement),
+                 (te.information, je.information)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype == np.float64
+        np.testing.assert_array_equal(a, b)
+    assert te.information[0, 0] == 10.0 and te.information[5, 5] == 20.0
+
+
+def test_loader_short_edge_line_raises_in_both():
+    """One number short of the information triangle: both loaders raise a
+    ValueError that names the line."""
+    text = (_TWO_POSES + _EDGE_HEAD
+            + " ".join(repr(v) for v in _TRIANGLE[:-1]) + "\n")
+    with pytest.raises(ValueError, match="line 3"):
+        jio.loads(text)
+    with pytest.raises(ValueError, match="line 3"):
+        tio.loads(text)
+
+
 @pytest.mark.parametrize("line,msg", [
     ("VERTEX_SE3:QUAT 3 1 2 3 0 0 0", "line 2"),
     ("EDGE_SE3:QUAT 0 1 0 0 0 0 0 0 1 " + " ".join(["1"] * 20), "line 2"),
