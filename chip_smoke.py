@@ -14,11 +14,13 @@ exits non-zero without printing a result:
    the card, float32 and float64, at the test shapes, the shapes the two
    main paths give them and shapes that reach every branch of K1's and
    K2's tile DAG; times each kernel, its plain version and the one PyTorch
-   call that computes the same function at those path shapes, in turns,
-   and counts the operations one call puts on the card (kernels, memsets,
-   copies) with ``torch.profiler``.  Then K4 (segment sum) the same way, at
-   the Pallas test shapes, an unsorted shape with out-of-range ids, and the
-   two bundle adjustment paths' shapes with their real segment ids;
+   call that computes the same function at those path shapes, in turns
+   (K2 and K3 also at every single-column batch of the supernodal sweeps,
+   (1|2|3|12|55, 144, 1)), and reads the device µs and the operations one
+   call puts on the card (kernels, memsets, copies) with
+   ``torch.profiler``.  Then K4 (segment sum) the same way, at the Pallas
+   test shapes, an unsorted shape with out-of-range ids, and the two
+   bundle adjustment paths' shapes with their real segment ids;
 4. main path, PCG: sphere2500 (``data/sphere2500.g2o``), Huber(1.0),
    float32 on the card, ``optimize_fused`` with
    ``PCGSolver(precond="chunk2")`` for 50 iterations at most after a
@@ -55,7 +57,9 @@ exits non-zero without printing a result:
    ``index_select``/``index_add`` at those path shapes, with the device µs
    and device operations of one call (``torch.profiler``); the row-major
    gather and segment sum (K7, K8) must put one operation on the card per
-   call at the runtime-bucketed ladybug shape;
+   call at the runtime-bucketed ladybug shape, the dims-major segment sum
+   (K6/K9) at the three dims-major paths' shapes, where two calls must
+   also give the same bits;
 8. main paths, implicit Schur: ``ImplicitSchurSolver`` with ``bench.py``'s
    settings, 10 LM iterations after a warm-up, float32, every camera free:
    ladybug, Venice (``bal-C800-P150000-K6``, with gauge deflation) and
@@ -71,7 +75,8 @@ exits non-zero without printing a result:
 Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
 untraced run's wall time per λ-trial, kernel launches per λ-trial and the
-kernels with the most device time.
+kernels with the most device time; on the supernodal path also K3's device
+ms per λ-trial, on the dims-major implicit paths K6/K9's.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on each main path, its error against its plain version, its time,
@@ -158,12 +163,16 @@ PEAK_F32_OPS_S = 67e12
 # (1000 = 15 tiles + 40, m = 37 < one tile), a larger single matrix (1536)
 SHAPES = [(7, 12, 5), (33, 48, 1), (5, 126, 96), (1, 960, 960),
           (1, 672, 672), (55, 144, 144), (55, 144, 192), (55, 144, 1),
+          (1, 144, 1), (2, 144, 1), (3, 144, 1), (12, 144, 1),
           (3, 65, 65), (2, 1000, 37), (1, 1536, 1536)]
 # (S, n, m) the main paths give the kernels: the chunk2 coarse level (K1,
 # and K2 with B = I); the supernodal path's largest batch of 144-column
 # panels (K1 on the diagonal panels, K2 on the below-panel blocks, K2 and
 # K3 on the forward and backward sweeps)
 TIMED = [(1, 960, 960), (55, 144, 144), (55, 144, 192), (55, 144, 1)]
+# the supernodal sweeps' other single-column batches, K2 and K3 timed alone
+# (S = 1 carries ten of each sweep's 17 K3 calls)
+SWEEP_TIMED = [(1, 144, 1), (2, 144, 1), (3, 144, 1), (12, 144, 1)]
 KERNELS = ("chol_batched", "solve_lower_batched", "solve_upper_batched",
            "segment_sum")
 # the shape each kernel's entry in the JSON line reports
@@ -218,9 +227,12 @@ def bound(name, shape, width=4, rhs_identity=False):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``name`` at ``shape`` in a ``width``-byte float type — the larger of
     the bytes it must move (each input read once, each output written once)
-    over the memory rate, and its operations over the float32 rate.  A
-    triangular solve against ``B = I`` (``rhs_identity``) needs n³/6
-    multiply-adds, not n²m/2: the inverse of a triangle is a triangle."""
+    over the memory rate, and its operations over the float32 rate.  The
+    factorization and the triangular solves read only the lower triangle
+    of their matrix, n(n+1)/2 values, and the factorization writes only
+    the lower triangle of its factor.  A triangular solve against ``B =
+    I`` (``rhs_identity``) needs n³/6 multiply-adds, not n²m/2: the
+    inverse of a triangle is a triangle."""
     if name in ("segment_sum", "onehot_scatter_add", "onehot_gather"):
         # (N, D) rows and N int32 ids against an (S, D) table; the sum
         # adds N*D values, the gather only moves them
@@ -229,10 +241,11 @@ def bound(name, shape, width=4, rhs_identity=False):
         ops = 0 if name == "onehot_gather" else N * D
     else:
         S, n, m = shape
+        tri = S * n * (n + 1) // 2
         if name == "chol_batched":
-            nbytes, ops = 2 * S * n * n * width, 2 * S * n ** 3 / 3
+            nbytes, ops = 2 * tri * width, 2 * S * n ** 3 / 3
         else:                      # n²m/2 multiply-adds
-            nbytes, ops = (S * n * n + 2 * S * n * m) * width, S * n * n * m
+            nbytes, ops = (tri + 2 * S * n * m) * width, S * n * n * m
             if rhs_identity:
                 ops /= 3
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
@@ -267,12 +280,6 @@ def device_profile(torch, fn, calls=10, tries=3):
             ops = round(n / calls)
             return sum(e.self_device_time_total for e in ev) / n * ops, ops
     return 0.0, 0
-
-
-def device_ops(torch, fn):
-    """Operations one call of ``fn`` puts on the card (kernels, memsets,
-    copies), counted by ``torch.profiler`` after one warm call."""
-    return device_profile(torch, fn)[1]
 
 
 def _in_turns(torch, fns, reps=20, rounds=2):
@@ -331,18 +338,23 @@ def kernel_phase(torch, ck):
             if not ok:
                 raise RuntimeError(f"a kernel disagrees with its plain "
                                    f"version at {dname} {(S, n, m)}: {rel}")
-            if (S, n, m) in TIMED and dtype == torch.float32:
+            timed = (KERNELS[:3] if (S, n, m) in TIMED else KERNELS[1:3]
+                     if (S, n, m) in SWEEP_TIMED else ())
+            if timed and dtype == torch.float32:
                 # in turns: plain, library, kernel, kernel, library, plain
                 res = {}
-                for k, (kern, plain, lib) in fns.items():
+                for k in timed:
+                    kern, plain, lib = fns[k]
                     t = _in_turns(torch, {"plain_ms": plain,
                                           "library_ms": lib, "ms": kern})
                     b_ms, b_by = bound(k, (S, n, m), rhs_identity=n == m)
+                    dev_us, ops = device_profile(torch, kern)
                     res[k] = dict(max_abs_err=err[k], ms=t["ms"],
                                   plain_ms=t["plain_ms"],
                                   library_ms=t["library_ms"],
                                   bound_ms=b_ms, bound_by=b_by,
-                                  device_ops_per_call=device_ops(torch, kern))
+                                  device_us_per_call=dev_us,
+                                  device_ops_per_call=ops)
                 out[_shape(S, n, m)] = res
                 phase("kernel_times", shape=_shape(S, n, m), dtype=dname,
                       **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in res.items()},
@@ -351,6 +363,8 @@ def kernel_phase(torch, ck):
                       **{f"{k}_library_ms": f"{v['library_ms']:.4f}"
                          for k, v in res.items()},
                       **{f"{k}_bound_ms": f"{v['bound_ms']:.4f}"
+                         for k, v in res.items()},
+                      **{f"{k}_device_us": f"{v['device_us_per_call']:.2f}"
                          for k, v in res.items()},
                       **{f"{k}_device_ops": v["device_ops_per_call"]
                          for k, v in res.items()})
@@ -403,15 +417,20 @@ def segment_kernel_phase(torch, sk, ba):
                     "library_ms": lambda: torch.index_add(Z, 0, ids, V),
                     "ms": lambda: sk.segment_sum(V, ids, S)})
                 b_ms, b_by = bound("segment_sum", (N, D, S))
+                dev_us, ops = device_profile(
+                    torch, lambda: sk.segment_sum(V, ids, S))
                 out[shape] = {"segment_sum": dict(
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     library_ms=t["library_ms"], bound_ms=b_ms,
-                    bound_by=b_by)}
+                    bound_by=b_by, device_us_per_call=dev_us,
+                    device_ops_per_call=ops)}
                 phase("kernel_times", kernel="segment_sum", path=kind,
                       shape=shape, dtype=dname, ms=f"{t['ms']:.4f}",
                       plain_ms=f"{t['plain_ms']:.4f}",
                       library_ms=f"{t['library_ms']:.4f}",
-                      bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+                      bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                      device_us_per_call=f"{dev_us:.2f}",
+                      device_ops_per_call=ops)
     return out
 
 
@@ -441,10 +460,12 @@ def layer_times(torch, p, solver, lam):
                 cg_ms_per_iteration=cg_ms / max(st["cg_iterations"], 1))
 
 
-def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5):
+def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5, watch=None):
     """``torch.profiler`` over ``iters`` LM iterations from ``est0``.  The
     tracer slows the host, so the busy share divides the traced device time
-    per λ-trial by the UNtraced run's wall time per λ-trial."""
+    per λ-trial by the UNtraced run's wall time per λ-trial.  ``watch``
+    ({label: kernel-name substrings}) adds each label's device ms per
+    λ-trial: the kernels whose name holds one of its substrings."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -474,6 +495,10 @@ def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5):
           device_busy_share=f"{dev_ms / ms_per_trial:.4f}",
           kernel_launches_per_lambda_trial=f"{launches / trials:.1f}",
           device_ops_per_lambda_trial=f"{dev_ops / trials:.1f}",
+          **{f"{label}_device_ms_per_lambda_trial": "{:.4f}".format(
+              sum(us for us, key, _ in kern
+                  if any(w in key for w in names)) / 1e3 / trials)
+             for label, names in (watch or {}).items()},
           top=";".join(f"{k[:48].replace(' ', '_')}:{us / 1e3:.3f}ms/{n}"
                        for us, k, n in kern[:8]))
     if not kern:
@@ -481,7 +506,7 @@ def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5):
 
 
 def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
-            iters=50, chi2_bound=CHI2_BOUND, extra=None):
+            iters=50, chi2_bound=CHI2_BOUND, extra=None, watch=None):
     """Warm up, then run ``optimize_fused(p, solver, iters)`` from ``est0``
     with every kernel count set to 0 just before; print the ``[tag]`` line
     (plus the ``extra`` facts) and raise unless every chi2 is finite, the
@@ -521,7 +546,8 @@ def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
     if not res["chi2_final"] <= chi2_bound:
         raise RuntimeError(f"{tag}: final chi2 {res['chi2_final']} after {n} "
                            f"iterations; need <= {chi2_bound}")
-    trace(g2o, p, est0, solver, tag, res["wall_s"] * 1e3 / max(trials, 1))
+    trace(g2o, p, est0, solver, tag, res["wall_s"] * 1e3 / max(trials, 1),
+          watch=watch)
     return res, launches
 
 
@@ -585,7 +611,8 @@ def main_path_phase(torch, g2o, wrappers):
               g["spb"] * 6 > 96 for g in groups),
           frontal_slots=sn._static["acc_T"])
     res_sn, launches_sn = _run_lm(torch, g2o, wrappers, p, est0, sn,
-                                  "main_path_supernodal", need=KERNELS[:3])
+                                  "main_path_supernodal", need=KERNELS[:3],
+                                  watch={"k3": ("solve_upper",)})
     lt = supernodal_layer_times(torch, p, sn, res_sn["lambda_final"])
     phase("layers_supernodal", **{k: f"{v:.3e}" if "residual" in k
                                   else f"{v:.3f}" for k, v in lt.items()})
@@ -921,12 +948,23 @@ def onehot_kernel_phase(torch, oh, implicit):
                       bound_ms=f"{b_ms:.4f}", bound_by=b_by,
                       device_us_per_call=f"{dev_us:.2f}",
                       device_ops_per_call=ops)
-                # K7 and K8 at the runtime-bucketed shape: one operation
-                # on the card per call (no memset beside the kernel)
-                if kind == "ladybug_runtime" and D == 9 and \
-                        k in RUNTIME_ONE_OP and ops != 1:
+                # K7 and K8 at the runtime-bucketed shape, K6/K9 at the
+                # dims-major paths': one operation on the card per call (no
+                # memset beside the kernel); K6/K9's sums the same bits on
+                # two calls
+                one_op = (k in RUNTIME_ONE_OP if kind == "ladybug_runtime"
+                          else k == "onehot_scatter_add_t")
+                if one_op and (D == 9 or kind != "ladybug_runtime") and \
+                        ops != 1:
                     raise RuntimeError(f"{k} at {shape} puts {ops} "
                                        f"operations on the card per call")
+                if k == "onehot_scatter_add_t":
+                    same = torch.equal(kern(), kern())
+                    phase("kernel_bits", kernel=k, path=kind, shape=shape,
+                          dtype=dname, same_bits_on_two_calls=same)
+                    if not same:
+                        raise RuntimeError(f"{k} at {shape} ({kind}) gives "
+                                           f"other bits on a second call")
     return out
 
 
@@ -944,7 +982,9 @@ def implicit_main_path_phase(torch, g2o, wrappers, implicit):
             torch, g2o, wrappers, p, est0, solver, tag, need=need, iters=10,
             chi2_bound=cfg["bound"], extra=dict(
                 layout=form,
-                reference_g2o_cpu_pcg_ms_per_iteration=f"{cfg['ref_ms']:.1f}"))
+                reference_g2o_cpu_pcg_ms_per_iteration=f"{cfg['ref_ms']:.1f}"),
+            watch={"k6": ("segment_sum_t_kernel", "scatter_add_kernel")}
+            if form == "dm" else None)
         trials = sum(res["trials_per_iteration"])
         phase(f"launches{tag[len('main_path'):]}", layout=form,
               lm_trials=trials,

@@ -86,19 +86,58 @@
 // written.  Shape rule: there is none; K1 at (55, 144, 144) is 220 tasks
 // of 3 tile columns, at (1, 960, 960) 106 tasks of 15.
 //
-// K3 design.  X = L^-T B with L lower (the backward sweep of the
-// supernodal solve): one thread per (matrix, rhs column) sweeps the rows
-// in NB-row tiles from the BOTTOM up.
-// For each finished tile below the current one it stages the NB x NB tile
-// of L transposed in shared memory (a coalesced row read of L, written
-// column-wise into the padded tile), subtracts it times its own finished X
-// rows, then solves the transposed diagonal tile bottom up.  Only the
-// lower triangle of L is used (the diagonal tile is staged whole; its
-// upper half is never read back).  The TPU version's U = L^T row-access
-// layout has no use here.  Bound: on the supernodal path it runs at
-// (S, 144, 1): n^2/2 FMAs per matrix on ONE live thread per 32-thread
-// block, so it is latency-bound on the per-thread sweep and most of each
-// warp idles; a per-matrix cooperative design for m = 1 is later work.
+// K3: what bounds it.  X = L^-T B with L lower, the backward sweep of the
+// supernodal solve.  That path calls it at m = 1 only, on (S, 144, 1) with
+// S = 1, 2, 3, 12 or 55, ten of its 17 calls per sweep on ONE matrix.
+// Bytes say little (43 KB, L's lower triangle and the column, at S = 1:
+// 0.013 us at 3.35 TB/s) and the
+// n^2/2 FMAs less: the bound is the dependent chain of n steps (x_k needs
+// every x_j, j > k), one multiply-add and one broadcast each, a few us at
+// n = 144.  The parent gave each (matrix, column) ONE thread of a 32-thread
+// block, which walked the chain with a block barrier per 32-row tile and
+// loads of L on it: 70-78 us per call (H100 80GB HBM3, 700 W).
+//
+// K3: the design, for m < NB (the path's m = 1): one block of UP_THREADS
+// per (rhs column, matrix), so a batch's matrices run side by side and a
+// call takes the time of one chain.
+//   * The sweep is column-oriented, 32-row tiles from the bottom up.  Warp
+//     0 solves a diagonal tile with no block barrier: lane r holds b_r and
+//     the tile's column r scaled by the reciprocal diagonal, a[k] =
+//     L[k][r] / L[k][k], and for k from the tile's bottom up lane k's value
+//     is broadcast with __shfl_sync and the lanes above subtract a[k] times
+//     it, so a step of the chain is one shuffle and one FMA; x_r = b_r /
+//     L[r][r] after the chain.
+//   * Before the sweep all warps form every diagonal tile's coefficients
+//     and reciprocal diagonal in shared memory (33 values per row: 20 KB at
+//     n = 144 in f32), so a tile's chain starts with 32 shared loads.
+//   * One block barrier per tile: then warp 0 applies the tile's x to the
+//     32 rows of the next tile (a 32-term GEMV, lane per row) while the
+//     other warps apply it to every row above that.  The rows of L outside
+//     the diagonal tiles are read from global memory (L2), coalesced along
+//     the columns, and each thread loads its row's 32 coefficients before
+//     the barrier, so the loads are in flight during the chain.  Staging
+//     all of L in shared memory first cost ~5 us before the chain could
+//     start (scripts/solve_upper_probe.py), more than it saved.
+//   * Only the lower triangle of L is read.  A NaN or Inf in L spreads as
+//     in the plain solve: every product that the plain solve forms is
+//     formed (a predicated subtraction, never a multiply by a zero mask).
+//     Ragged n: the last tile has fewer rows.
+// For m >= NB, and past UP_SMEM_MAX (n > 1504 in f32, 736 in f64), no path,
+// the parent's kernel stays: one thread per (matrix, rhs column) in
+// NB-thread blocks, full there at m >= NB, each sweeping the rows in NB-row
+// tiles from the BOTTOM up, staging each finished tile of L transposed in
+// shared memory (only its lower triangle is used).  The chain kernel at
+// every m lost where chip_smoke.py times K3 at m > 1 (device us, f32,
+// scripts/onehot_ab.py --k3, H100 80GB HBM3, 700 W): 318 against 77.6 at
+// (55, 144, 144), 423 against 56.4 at (55, 144, 192) (a block per column
+// reads all of L from L2), though 598 against 1347 at (1, 960, 960) and
+// 18.6 against 37.3 at (5, 126, 96).
+// Both are one launch per call, no scratch, no memset, so a call can be
+// captured in a CUDA graph.  Measured (H100 80GB HBM3, 700 W): 10.59-10.69
+// us of device time per call at (1|2|3|12|55, 144, 1) f32, against the
+// parent's 69.3-75.0 in the same process (scripts/onehot_ab.py --k3); by
+// scripts/solve_upper_probe.py about 1.2 of it is the launch, 1.4 the
+// coefficients, 4.6 the chains and 2.8 the updates.
 
 #include <cuda_runtime.h>
 
@@ -108,7 +147,9 @@
 
 namespace {
 
-constexpr int NB = 32;                  // K3's row tile
+constexpr int NB = 32;                  // K3's row tile (a warp)
+constexpr int UP_THREADS = 256;         // K3 for m < NB: a block per column
+constexpr int UP_SMEM_MAX = 200 * 1024; // K3: the most shared memory
 constexpr int TILE = 64;                // K1's and K2's tile edge
 constexpr int THREADS = 256;            // K1 and K2: a 16 x 16 grid of 4 x 4 blocks
 constexpr int STATIC_SMEM = 48 * 1024;  // without an opt-in
@@ -607,6 +648,95 @@ solve_lower_tiles(const T* __restrict__ L, const T* __restrict__ B, T* Y,
   }
 }
 
+// X = L^-T B for m < NB: block (column, matrix) of UP_THREADS threads; in
+// shared memory the rhs column (xb), and the chain's coefficients of every
+// diagonal tile, coef[t][k][r] = L[i0 + k][i0 + r] / L[i0 + k][i0 + k] for
+// r < k (i0 = 32 t), and the reciprocal diagonal rdg[t][r], prepared by all
+// warps before the sweep.  Rows of L outside the diagonal tiles are read
+// from global memory (L2), each thread's row of the next update loaded
+// before the chain.
+template <typename T>
+__global__ void __launch_bounds__(UP_THREADS)
+solve_upper_chain(const T* __restrict__ L, const T* __restrict__ B,
+                  T* __restrict__ X, int n, int m) {
+  constexpr int W = 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = (n + NB - 1) / NB;
+  T* xb = reinterpret_cast<T*>(smem_raw);
+  T* rdg = xb + (n + W - 1) / W * W;              // (nt, NB)
+  T* coef = rdg + nt * NB;                        // (nt, NB, NB)
+  const size_t z = blockIdx.y;
+  const T* l = L + z * n * n;
+  const T* b = B + z * n * m + blockIdx.x;
+  T* x = X + z * n * m + blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < n; i += UP_THREADS) xb[i] = b[(size_t)i * m];
+  for (int t = warp; t < nt; t += UP_THREADS / 32) {
+    const int i0 = t * NB, rows = min(NB, n - i0);
+    const T rd = lane < rows ? T(1) / l[(size_t)(i0 + lane) * n + i0 + lane] : T(1);
+    T c[NB];
+#pragma unroll
+    for (int k = 0; k < NB; ++k)
+      c[k] = k < rows && lane < k ? l[(size_t)(i0 + k) * n + i0 + lane] : T(0);
+    rdg[t * NB + lane] = rd;
+#pragma unroll
+    for (int k = 0; k < NB; ++k)
+      coef[(t * NB + k) * NB + lane] = c[k] * __shfl_sync(FULL, rd, k);
+  }
+  __syncthreads();
+  for (int t = nt - 1; t >= 0; --t) {
+    const int i0 = t * NB, rows = min(NB, n - i0);
+    // the rows above take the tile's x next: warp 0 the 32 rows of the next
+    // tile, the other warps the rest; each thread's first row's
+    // coefficients load now, in flight during the chain
+    const bool first = warp == 0;
+    const int lo = first ? i0 - NB + lane : tid - 32;
+    const int hi = first ? i0 : i0 - NB;
+    const int step = first ? NB : UP_THREADS - 32;
+    T u[NB];
+    if (t > 0 && lo < hi) {
+#pragma unroll
+      for (int k = 0; k < NB; ++k)
+        u[k] = k < rows ? l[(size_t)(i0 + k) * n + lo] : T(0);
+    }
+    if (warp == 0) {
+      // lane r: row i0 + r; rd its reciprocal diagonal, a[k] the tile's
+      // L[i0 + k][i0 + r] * rd_k below the diagonal
+      const bool live = lane < rows;
+      const T rd = rdg[t * NB + lane];
+      T a[NB];
+#pragma unroll
+      for (int k = 0; k < NB; ++k) a[k] = coef[(t * NB + k) * NB + lane];
+      T v = live ? xb[i0 + lane] : T(0);
+#pragma unroll
+      for (int k = NB - 1; k >= 0; --k) {
+        if (k >= rows) continue;                  // the same for the warp
+        const T vk = __shfl_sync(FULL, v, k);
+        if (lane < k) v -= a[k] * vk;
+      }
+      v *= rd;
+      if (live) {
+        xb[i0 + lane] = v;
+        x[(size_t)(i0 + lane) * m] = v;
+      }
+    }
+    if (t == 0) break;
+    __syncthreads();
+    // disjoint rows; the next barrier orders them before their reads
+    for (int i = lo; i < hi; i += step) {
+      T s = xb[i];
+      if (i == lo) {
+#pragma unroll
+        for (int k = 0; k < NB; ++k)
+          if (k < rows) s -= u[k] * xb[i0 + k];
+      } else {
+        for (int k = 0; k < rows; ++k) s -= l[(size_t)(i0 + k) * n + i] * xb[i0 + k];
+      }
+      xb[i] = s;
+    }
+  }
+}
+
 // X = L^-T B; one thread per rhs column, blockDim.x == NB.
 template <typename T>
 __global__ void solve_upper(const T* L, const T* B, T* X, int n, int m) {
@@ -750,10 +880,37 @@ int solve_lower_batched(const T* L, const T* B, T* Y, int* flags, long long nfla
   return (int)cudaGetLastError();
 }
 
+// shared memory of solve_upper_chain: the rhs column, padded to 16 bytes,
+// and the diagonal tiles' reciprocal diagonals and coefficients
+template <typename T>
+constexpr size_t chain_smem(int n) {
+  const size_t w = 16 / sizeof(T), nt = (n + NB - 1) / NB;
+  return ((n + w - 1) / w * w + nt * NB * (NB + 1)) * sizeof(T);
+}
+
 template <typename T>
 int solve_upper_batched(const T* L, const T* B, T* X, int S, int n, int m,
                         cudaStream_t st) {
-  solve_upper<T><<<dim3((m + NB - 1) / NB, 1, S), NB, 0, st>>>(L, B, X, n, m);
+  const size_t smem = chain_smem<T>(n);
+  if (m >= NB || smem > (size_t)UP_SMEM_MAX) {
+    solve_upper<T><<<dim3((m + NB - 1) / NB, 1, S), NB, 0, st>>>(L, B, X, n, m);
+    return (int)cudaGetLastError();
+  }
+  if (smem > (size_t)STATIC_SMEM) {
+    static std::atomic<bool> raised[MAX_DEVICES];
+    int dev, sms;
+    int err = device_sms(&dev, &sms);
+    if (err) return err;
+    if (!raised[dev].load(std::memory_order_relaxed)) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          solve_upper_chain<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          UP_SMEM_MAX);
+      if (e != cudaSuccess) return (int)e;
+      raised[dev].store(true, std::memory_order_relaxed);
+    }
+  }
+  solve_upper_chain<T><<<dim3((unsigned)m, (unsigned)S), UP_THREADS, smem, st>>>(
+      L, B, X, n, m);
   return (int)cudaGetLastError();
 }
 

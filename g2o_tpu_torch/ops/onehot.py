@@ -28,6 +28,12 @@ and how they are laid out), built by
   keeps per stream for eager calls, and allocates per call in a CUDA
   graph), then across the blocks after a grid barrier; no memset, no
   global atomics, and no value kept between calls;
+* the dims-major segment sum with ``S·D <= 65536`` and ``S <= 8192``
+  (the kernel's ``SEGT_MAX_CELLS`` and ``SEGT_COUNTS``; K6/K9 on the three
+  dims-major implicit paths): the same properties, one cooperative launch
+  in which each block sums its rows in a fixed order (by column into
+  per-warp accumulators where they fit, else sorted by id once and summed
+  per (segment, column) cell on one thread), then across the blocks;
 * every other segment sum: per-block shared accumulators flushed with
   atomics into the output, which a memset zeroes first.
 

@@ -2,7 +2,7 @@
 implicit Schur paths' shapes, on the CUDA card, this checkout against a
 parent checkout's kernels and wrappers in one process.
 
-    python3 scripts/onehot_ab.py [--parent DIR] [--sweep] [--json PATH]
+    python3 scripts/onehot_ab.py [--parent DIR] [--sweep] [--k3] [--json PATH]
 
 Loads the four implicit Schur problems as ``chip_smoke.py`` does (ladybug,
 stress and Venice dims-major, ladybug runtime-bucketed) and takes the camera
@@ -25,6 +25,12 @@ also times this checkout's row-major segment sum at 35000 rows of 9 values
 over the number of segments up to ``ops/onehot.py``'s ``ROWSUM_MAX_CELLS``,
 its one-launch branch against its memset branch in alternating pairs,
 each called through the library's entry point with the same host work.
+
+``--k3`` also times K3 (``ops/chol_kernels.py::solve_upper_batched``) at
+the supernodal sweep's shapes, (1|2|3|12|55, 144, 1) f32, and at the wider
+ones of :data:`K3_SHAPES`, the same way
+beside ``torch.linalg.solve_triangular`` (and the parent's K3 with
+``--parent``), after holding each side against the plain version.
 
 Every line names the card and its power limit; ``--json PATH`` also
 writes the whole result there.
@@ -64,23 +70,78 @@ def _measure(torch, fn, reps, prof_calls=10):
                 device_ops=ops)
 
 
-def _parent_onehot(parent):
-    """The parent's ``ops/onehot.py``, bound to its own kernel library."""
+def _parent_module(parent, module="onehot", lib="gather_segment"):
+    """The parent's ``ops/<module>.py``, bound to its own build of
+    ``csrc/<lib>.cu``."""
     from g2o_tpu_torch.ops import chol_kernels as ck
 
-    src = os.path.join(parent, "g2o_tpu_torch", "csrc", "gather_segment.cu")
+    src = os.path.join(parent, "g2o_tpu_torch", "csrc", f"{lib}.cu")
     os.makedirs(ck.BUILD_DIR, exist_ok=True)
-    so = os.path.join(ck.BUILD_DIR, "libgather_segment_parent.so")
+    so = os.path.join(ck.BUILD_DIR, f"lib{lib}_parent.so")
     subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-o", so, src], check=True,
                    cwd=os.path.dirname(src))
     spec = importlib.util.spec_from_file_location(
-        "onehot_parent",
-        os.path.join(parent, "g2o_tpu_torch", "ops", "onehot.py"))
+        f"{module}_parent",
+        os.path.join(parent, "g2o_tpu_torch", "ops", f"{module}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.build = lambda *names: [so]          # its _load() binds this build
     mod._load()
     return mod
+
+
+# K3's shapes: the supernodal sweep's (S, 144, 1), then the wider ones that
+# chip_smoke.py times it at (B = I where n == m) and a Pallas test shape
+K3_SHAPES = [(1, 144, 1), (2, 144, 1), (3, 144, 1), (12, 144, 1),
+             (55, 144, 1), (1, 960, 960), (55, 144, 144), (55, 144, 192),
+             (5, 126, 96)]
+
+
+def k3_ab(torch, card, parent, reps):
+    """K3 at :data:`K3_SHAPES`: ``{window_us, host_us,
+    device_us, device_ops}`` per call of this checkout's, the parent's
+    (with ``parent``) and ``solve_triangular``, in turns (parent, this,
+    library, library, this, parent), each side first held against the
+    plain version within 2e-5 of the largest entry."""
+    from g2o_tpu_torch.ops import chol_kernels as ck
+
+    sides = {"this": ck}
+    if parent:
+        sides = {"parent": _parent_module(parent, "chol_kernels",
+                                          "batched_chol"), "this": ck}
+    order = [*sides, "library", "library", *list(sides)[::-1]]
+    rng = np.random.default_rng(7)
+    out = []
+    for S, n, m in K3_SHAPES:
+        A = rng.standard_normal((S, n, n))
+        L = torch.linalg.cholesky(torch.as_tensor(
+            A @ A.transpose(0, 2, 1) + n * np.eye(n), dtype=torch.float32,
+            device="cuda")).contiguous()
+        B = (torch.eye(n, device="cuda").expand(S, n, n).contiguous()
+             if n == m else torch.as_tensor(rng.standard_normal((S, n, m)),
+                                            dtype=torch.float32,
+                                            device="cuda"))
+        calls = {side: (lambda m=mod: m.solve_upper_batched(L, B))
+                 for side, mod in sides.items()}
+        calls["library"] = lambda: torch.linalg.solve_triangular(
+            L.mT, B, upper=True)
+        want = ck.solve_upper_batched_plain(L, B)
+        for side in sides:
+            err = float((calls[side]() - want).abs().max())
+            if err > 2e-5 * float(want.abs().max()):
+                raise RuntimeError(f"K3 {side} disagrees at {(S, n, m)}: "
+                                   f"{err}")
+        runs = {k: [] for k in order}
+        for k in order:
+            runs[k].append(_measure(torch, calls[k], reps))
+        med = {k: {m: float(np.median([r[m] for r in v])) for m in v[0]}
+               for k, v in runs.items()}
+        out.append(dict(shape=[S, n, m], **med))
+        print(f"[k3_ab] card={card.replace(' ', '_')} shape={S}x{n}x{m} "
+              + " ".join(f"{k}:{m}={v[m]:.2f}" for k, v in med.items()
+                         for m in ("window_us", "host_us", "device_us",
+                                   "device_ops")), flush=True)
+    return out
 
 
 def _cases(path_ids):
@@ -131,6 +192,8 @@ def main():
                     "this one's")
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--k3", action="store_true", help="also time K3 at the "
+                    "supernodal sweep's shapes")
     ap.add_argument("--json", help="file for the whole result")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
@@ -146,7 +209,7 @@ def main():
     ck.build()
     sides = {"this": oh}
     if args.parent:
-        sides = {"parent": _parent_onehot(os.path.abspath(args.parent)),
+        sides = {"parent": _parent_module(os.path.abspath(args.parent)),
                  "this": oh}
     implicit = chip_smoke.load_implicit(torch, g2o)
     path_ids = chip_smoke._path_ids(implicit)
@@ -179,6 +242,9 @@ def main():
                             "device_ops")), flush=True)
     if args.sweep:
         result["sweep"] = sweep(torch, oh, card, args.reps)
+    if args.k3:
+        result["k3"] = k3_ab(torch, card, args.parent and os.path.abspath(
+            args.parent), args.reps)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(result, fh, indent=1)

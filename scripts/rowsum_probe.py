@@ -1,12 +1,22 @@
-"""Where the row-major one-launch segment sum's device time goes, on the
-CUDA card: variants of ``g2o_tpu_torch/csrc/gather_segment.cu``, each with
-one phase cut out or one setting changed, built side by side and timed at
-one shape (by default the runtime-bucketed ladybug shape, 35000 rows of 9
-values into 49 segments, ids in [0, 49], f32).
+"""Where a segment sum's device time goes, on the CUDA card: variants of
+``g2o_tpu_torch/csrc/gather_segment.cu``, each with one phase cut out or one
+setting changed, built side by side and timed.
 
     python3 scripts/rowsum_probe.py [--n 35000] [--s 49] [--d 9]
+    python3 scripts/rowsum_probe.py --dims-major SOURCE
 
-Variants (a cut variant computes wrong sums and is timed only):
+Without ``--dims-major``: the row-major one-launch segment sum at one shape
+(by default the runtime-bucketed ladybug shape, 35000 rows of 9 values into
+49 segments, ids in [0, 49], f32).  With ``--dims-major SOURCE``: the split
+of the dims-major segment sum of SOURCE (a ``gather_segment.cu``) at the six
+shapes of the dims-major implicit Schur paths (ladybug, stress and Venice,
+D = 9 and 81, with the paths' own camera ids, as ``chip_smoke.py`` loads
+them): of the one-launch kernel (:data:`SEGT_VARIANTS`) where SOURCE has
+it, else of the memset-and-atomics kernel (:data:`DM_VARIANTS`); see
+:func:`dims_major_split`.
+
+Row-major variants (a cut variant computes wrong sums and is timed
+only):
 
 * ``ship``: the source as it is;
 * ``no_rows``: without the pass over the rows (the fixed cost);
@@ -86,20 +96,81 @@ VARIANTS = {
 }
 
 
-def build(out_dir):
-    """``{variant: ctypes.CDLL}``, one nvcc per variant, all at once."""
+# the dims-major split: variants of the memset-and-atomics branch (a cut
+# variant computes wrong sums and is timed only)
+DM_VARIANTS = {
+    "ship": [],
+    # without the memset of `out` before the kernel
+    "no_memset": [("  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)S * D * "
+                   "sizeof(T), st);\n  if (e != cudaSuccess) return (int)e;",
+                   "  cudaError_t e = cudaSuccess;\n  (void)e;")],
+    # without the flush of the blocks' partials by global atomics: (b)
+    "no_flush": [("    if (v != T(0)) {\n      const int s = j / dt;",
+                  "    if (false) {\n      const int s = j / dt;")],
+    # plain (racy) shared adds in place of the per-value shared atomics: (a)
+    "no_shared_atomics": [
+        ("if (s[u] >= 0 && s[u] < S) atomicAdd(acc + s[u] * ld + c[u], v[u]);",
+         "if (s[u] >= 0 && s[u] < S) acc[s[u] * ld + c[u]] += v[u];")],
+    # without the pass over the values (launch, zeroing, an empty flush)
+    "no_rows": [("const unsigned total = (unsigned)N * (unsigned)dt;",
+                 "const unsigned total = 0u;")],
+    # one block per D-tile: a flush of one partial per cell
+    "one_block": [("  if (gx < 1) gx = 1;\n", "  gx = 1;\n")],
+}
+
+
+# the split of the dims-major one-launch sum (segment_sum_t_kernel), and its
+# sorted phase forced at every shape
+SEGT_VARIANTS = {
+    "ship": [],
+    # by sorted rows at every shape (ladybug and stress D = 9 too)
+    "sorted": [("*by_column = *smem <= (size_t)SEGT_COLUMN_BUDGET;",
+                "*by_column = false;")],
+    # by column (ladybug and stress D = 9): without the pass over the rows
+    "col_no_rows": [("for (long long bb = b0 + (b1 - b0) * warp / SEGT_WARPS; "
+                     "bb < w1; ++bb) {", "for (long long bb = w1; bb < w1; "
+                     "++bb) {")],
+    # sorted: without the sums over the staged columns (the sort, the
+    # copies, the partials' stores and the final pass kept)
+    "no_sums": [("const int end = start[sg + 1];",
+                 "const int end = start[sg];")],
+    # sorted: without the 16-byte copies of the values (the sums read
+    # stale shared memory)
+    "no_copies": [("for (int e = tid; e < cols * nv; e += SEGT_THREADS) {",
+                   "for (int e = cols * nv; e < cols * nv; e += SEGT_THREADS) {")],
+    # without the pass over the runs' partials
+    "no_final": [("for (size_t r = 0; firstg + r * groups < cells; ++r) {",
+                  "for (size_t r = 0; false; ++r) {")],
+    # a block barrier in place of the grid barrier
+    "no_grid_barrier": [("  cooperative_groups::this_grid().sync();\n"
+                         "  // L lanes per cell",
+                         "  __syncthreads();\n  // L lanes per cell")],
+}
+# the variants that compute the sum (the others are timed only)
+SEGT_WHOLE = ("ship", "sorted")
+
+
+def build(out_dir, variants=None, src_path=None, tag="probe",
+          kernel="segment_sum_rows_kernel", entry="g2o_scatter_add_f32",
+          argtypes=None):
+    """``{variant: entry point}``: C function ``entry`` (``argtypes``,
+    default the segment sum's) of each of ``variants`` (default
+    :data:`VARIANTS`) of ``src_path`` (default this checkout's
+    ``gather_segment.cu``), one nvcc per variant, all at once; prints
+    ptxas's registers and spills of ``kernel``."""
     from g2o_tpu_torch.ops import chol_kernels as ck
 
-    src_path = ck.SOURCES["gather_segment"]
+    variants = VARIANTS if variants is None else variants
+    src_path = src_path or ck.SOURCES["gather_segment"]
     src = open(src_path).read()
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"{name}: {old!r} not in the source")
             text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"probe_{name}.cu")
+        cu = os.path.join(out_dir, f"{tag}_{name}.cu")
         with open(cu, "w") as fh:
             fh.write(text)
         so = cu[:-3] + ".so"
@@ -115,18 +186,17 @@ def build(out_dir):
         # ptxas's registers and spills of the row-major sum's kernels
         lines = err.splitlines()
         for i, line in enumerate(lines):
-            if "segment_sum_rows_kernel" in line:
-                print(f"[rowsum_probe] variant={name} " + " ".join(
+            if kernel in line:
+                print(f"[{tag}_build] variant={name} " + " ".join(
                     x.strip() for x in lines[i + 1:i + 3]), flush=True)
         sass = subprocess.run([os.path.join(os.path.dirname(ck._nvcc()),
                                             "cuobjdump"), "-sass", so],
                               capture_output=True, text=True).stdout
-        print(f"[rowsum_probe] variant={name} sass_BSSY={sass.count('BSSY')}"
+        print(f"[{tag}_build] variant={name} sass_BSSY={sass.count('BSSY')}"
               f" sass_BRA={sass.count(' BRA ')}", flush=True)
-        lib = ctypes.CDLL(so)
-        fn = lib.g2o_scatter_add_f32
+        fn = getattr(ctypes.CDLL(so), entry)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        fn.argtypes = argtypes or [vp, vp, vp, ci, ci, ci, ci, vp]
         fn.restype = ci
         libs[name] = fn
     return libs
@@ -138,6 +208,9 @@ def main():
     ap.add_argument("--s", type=int, default=49)
     ap.add_argument("--d", type=int, default=9)
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--dims-major", metavar="SOURCE",
+                    help="split the dims-major memset-and-atomics segment "
+                    "sum of this gather_segment.cu at the paths' shapes")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
 
@@ -149,6 +222,10 @@ def main():
 
     card = chip_smoke.device_phase(torch)
     os.makedirs(ck.BUILD_DIR, exist_ok=True)
+    if args.dims_major:
+        dims_major_split(torch, chip_smoke, oh, card,
+                         os.path.abspath(args.dims_major), args.rounds)
+        return
     fns = build(ck.BUILD_DIR)
     fns["memset"] = fns["ship"]
     N, S, D = args.n, args.s, args.d
@@ -216,6 +293,63 @@ def main():
               f"{float(np.median(v['graph_us'])):.2f}", flush=True)
 
     host(torch, oh, fns, card, ids, rows, S, s_memset, args.rounds)
+
+
+def dims_major_split(torch, chip_smoke, oh, card, source, rounds):
+    """Device µs and operations per call (``torch.profiler``, the median
+    of ``rounds`` in turns) of each variant of ``source``'s dims-major
+    segment sum (:data:`SEGT_VARIANTS` where it has the one-launch kernel,
+    else :data:`DM_VARIANTS`), called through its C entry with
+    ``dims_major = 1``, at the six dims-major path shapes with the paths'
+    camera ids; each variant that computes the sum (:data:`SEGT_WHOLE`)
+    must agree with the plain version.  The cost of a phase is ``ship``
+    less the variant without it."""
+    import g2o_tpu_torch as g2o
+    from g2o_tpu_torch.ops import chol_kernels as ck
+
+    one_launch = "segment_sum_t_kernel" in open(source).read()
+    fns = build(ck.BUILD_DIR, SEGT_VARIANTS if one_launch else DM_VARIANTS,
+                source, "dm", "segment_sum_t_kernel" if one_launch
+                else "scatter_add_kernel")
+    path_ids = chip_smoke._path_ids(chip_smoke.load_implicit(torch, g2o))
+    rng = np.random.default_rng(6)
+    for kind in ("ladybug_dm", "stress_dm", "venice"):
+        ids, S = path_ids[kind]
+        N = ids.shape[0]
+        for D in (9, 81):
+            rows_t = torch.as_tensor(rng.standard_normal((D, N)),
+                                     dtype=torch.float32, device="cuda")
+            out = rows_t.new_empty((S, D))
+
+            def call_of(fn):
+                def call():
+                    err = fn(rows_t.data_ptr(), ids.data_ptr(),
+                             out.data_ptr(), N, S, D, 1,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"CUDA error {err}")
+                return call
+
+            calls = {name: call_of(fn) for name, fn in fns.items()}
+            want = oh.onehot_scatter_add_t_plain(ids, rows_t, S)
+            for name in (SEGT_WHOLE if one_launch else ("ship",)):
+                calls[name]()
+                torch.cuda.synchronize()
+                if float((out - want).abs().max()) > 2e-5 * float(
+                        want.abs().max()):
+                    raise RuntimeError(f"{name} disagrees at {kind} D={D}")
+            res = {k: [] for k in calls}
+            ops = {}
+            for r in range(rounds):
+                for name in (list(calls) if r % 2 == 0
+                             else list(calls)[::-1]):
+                    us, ops[name] = chip_smoke.device_profile(torch,
+                                                              calls[name])
+                    res[name].append(us)
+            print(f"[dm_split] card={card.replace(' ', '_')} path={kind} "
+                  f"N={N} D={D} S={S} " + " ".join(
+                      f"{k}:device_us={float(np.median(v)):.2f}/"
+                      f"ops={ops[k]}" for k, v in res.items()), flush=True)
 
 
 def host(torch, oh, fns, card, ids, rows, S, s_memset, rounds, reps=500):

@@ -27,7 +27,9 @@ def _spd(rng, S, n, dtype):
     return A @ A.transpose(0, 2, 1) + n * np.eye(n, dtype=dtype)
 
 
-@pytest.mark.parametrize("S,n,m", [(7, 12, 5), (33, 48, 1), (5, 126, 96)])
+# the Pallas test shapes, then the supernodal backward sweep's (S, 144, 1)
+@pytest.mark.parametrize("S,n,m", [(7, 12, 5), (33, 48, 1), (5, 126, 96),
+                                   (1, 144, 1), (2, 144, 1), (12, 144, 1)])
 def test_plain_versions_match_pallas_kernels(S, n, m):
     rng = np.random.default_rng(0)
     D = _spd(rng, S, n, np.float32)

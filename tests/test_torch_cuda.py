@@ -120,6 +120,50 @@ def test_solve_lower_spreads_nan_of_factor_on_card(dtype):
     assert float(err) <= tol
 
 
+# K3 for m < 32 while the column and the diagonal tiles' coefficients fit
+# 200 KB of shared memory (one block per column; n <= 1504 in float32, 736
+# in float64), and otherwise (a thread per column): the supernodal sweep's
+# (S, 144, 1), m > 1 and m >= 32, ragged n, and n past the staging limit
+_K3_SHAPES = [(1, 144, 1), (2, 144, 1), (3, 144, 1), (12, 144, 1),
+              (55, 144, 1), (4, 100, 7), (3, 65, 1), (2, 250, 31),
+              (2, 300, 3), (1, 1000, 1), (5, 126, 96), (2, 70, 40),
+              (1, 1600, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-11)])
+@pytest.mark.parametrize("S,n,m", _K3_SHAPES)
+def test_solve_upper_matches_plain_on_card(S, n, m, dtype, tol):
+    """K3 against its plain version with NaN above the diagonal of L (only
+    the lower triangle may be read), and with a NaN below it: NaN comes
+    out exactly where the plain solve gives it."""
+    _need_card()
+    rng = np.random.default_rng(n + m)
+    A = rng.standard_normal((S, n, n))
+    D = torch.as_tensor(A @ A.transpose(0, 2, 1) + n * np.eye(n),
+                        dtype=dtype, device="cuda")
+    L = torch.linalg.cholesky(D)
+    L = (L + torch.triu(torch.full_like(L, float("nan")), 1)).contiguous()
+    B = torch.as_tensor(rng.standard_normal((S, n, m)), dtype=dtype,
+                        device="cuda")
+    before = chol_kernels.solve_upper_batched.launches
+    X = chol_kernels.solve_upper_batched(L, B)
+    want = chol_kernels.solve_upper_batched_plain(L, B)
+    torch.cuda.synchronize()
+    assert chol_kernels.solve_upper_batched.launches == before + 1
+    assert bool(torch.isfinite(want).all())
+    assert (X - want).abs().max() <= tol * want.abs().max()
+    L[S - 1, n // 2, n // 3] = float("nan")
+    X = chol_kernels.solve_upper_batched(L, B)
+    want = chol_kernels.solve_upper_batched_plain(L, B)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[S - 1, :n // 3 + 1]).all())
+    assert torch.equal(torch.isnan(X), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert (X[fin] - want[fin]).abs().max() <= tol * want[fin].abs().max()
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_non_contiguous_on_card():
     _need_card()
@@ -232,6 +276,10 @@ _ONEHOT_CASES = [
     (999, 7, 3, -1, 9, 3),                  # unaligned, D = 3
     (_S_AT_LIMIT, _S_AT_LIMIT, 9, 0, _S_AT_LIMIT + 1, 0),  # S*D at the limit
     (_S_AT_LIMIT, _S_AT_LIMIT + 1, 9, 0, _S_AT_LIMIT + 2, 0),  # past it
+    # the dims-major implicit paths' shapes (ladybug D = 9 is above)
+    (35000, 49, 81, 0, 49, 0), (198088, 120, 9, 0, 120, 0),
+    (198088, 120, 81, 0, 120, 0), (900000, 800, 9, 0, 800, 0),
+    (900000, 800, 81, 0, 800, 0),
 ]
 
 
@@ -299,21 +347,33 @@ def _device_ops(fn, calls=10, tries=3):
     return 0
 
 
+# the dims-major segment sum's one-launch limits: SEGT_MAX_CELLS (the
+# partials' scratch) and SEGT_COUNTS (the sort's counters) of
+# csrc/gather_segment.cu
+_DIMS_MAJOR_MAX_CELLS = 65536
+_DIMS_MAJOR_MAX_SEGMENTS = 8192
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,s,d,ops", [
-    (35000, 49, 9, 1),          # ladybug runtime: the kernel alone
-    (1001, 1, 9, 1),
-    (4000, _S_AT_LIMIT, 9, 1),  # S*D at the limit
-    (4000, _S_AT_LIMIT + 1, 9, 2),  # past it: memset + kernel
-    (198088, 120, 81, 2),       # the stress file's camera blocks
-    (30000, 70000, 9, 2),       # past a shared column: memset + kernel
+@pytest.mark.parametrize("n,s,d,ops,ops_t", [
+    (35000, 49, 9, 1, 1),       # ladybug runtime: the kernel alone
+    (1001, 1, 9, 1, 1),
+    (4000, _S_AT_LIMIT, 9, 1, 1),   # S*D at the row-major limit
+    (4000, _S_AT_LIMIT + 1, 9, 2, 1),   # past it: memset + kernel
+    (198088, 120, 81, 2, 1),    # the stress file's camera blocks
+    (9000, 800, 81, 2, 1),      # Venice's S*D, two D-tiles
+    (9000, 7282, 9, 2, 2),      # past _DIMS_MAJOR_MAX_CELLS
+    (9000, 8193, 1, 2, 2),      # past _DIMS_MAJOR_MAX_SEGMENTS
+    (30000, 70000, 9, 2, 2),    # past a shared column: memset + kernel
 ])
-def test_onehot_segment_sum_device_operations_on_card(n, s, d, ops, dtype):
+def test_onehot_segment_sum_device_operations_on_card(n, s, d, ops, ops_t,
+                                                      dtype):
     """The row-major segment sum puts one operation on the card while
     S*D <= ROWSUM_MAX_CELLS (no memset: the kernel stores every cell) and a
-    memset and a kernel past it; the dims-major one a memset and a kernel;
-    the gathers one.  Repeated calls agree with the plain version."""
+    memset and a kernel past it; the dims-major one one operation while
+    S*D <= _DIMS_MAJOR_MAX_CELLS and S <= _DIMS_MAJOR_MAX_SEGMENTS, else a
+    memset and a kernel; the gathers one.  Repeated calls agree with the plain version."""
     _need_card()
     rng = np.random.default_rng(7)
     ids = torch.as_tensor(rng.integers(-1, s + 1, size=n).astype(np.int32),
@@ -324,9 +384,11 @@ def test_onehot_segment_sum_device_operations_on_card(n, s, d, ops, dtype):
     table = rows[:s] if s <= n else rows.new_ones((s, d))
     tol = 2e-5 if dtype == torch.float32 else 1e-11
     want = onehot.onehot_scatter_add_plain(ids, rows, s)
+    assert (ops_t == 1) == (s * d <= _DIMS_MAJOR_MAX_CELLS
+                            and s <= _DIMS_MAJOR_MAX_SEGMENTS)
     for fn, n_ops in ((lambda: onehot.onehot_scatter_add(ids, rows, s), ops),
                       (lambda: onehot.onehot_scatter_add_t(ids, rows_t, s),
-                       2)):
+                       ops_t)):
         assert _device_ops(fn) == n_ops
         for _ in range(3):
             assert (fn() - want).abs().max() <= tol * want.abs().max()
@@ -337,19 +399,54 @@ def test_onehot_segment_sum_device_operations_on_card(n, s, d, ops, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,s", [(35000, 49), (4000, _S_AT_LIMIT), (7, 3)])
-def test_onehot_segment_sum_is_bit_identical_on_card(n, s, dtype):
-    """The row-major one-launch segment sum adds in a fixed order: calls on
-    the same inputs give the same bits."""
+@pytest.mark.parametrize("S,n,m", [(1, 144, 1), (55, 144, 1), (2, 300, 3),
+                                   (2, 70, 40), (1, 1600, 2)])
+def test_solve_upper_device_operations_on_card(S, n, m, dtype):
+    """K3 puts one operation on the card per call in each branch (no
+    scratch, no memset), so a call can be captured in a CUDA graph."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    A = rng.standard_normal((S, n, n))
+    L = torch.linalg.cholesky(torch.as_tensor(
+        A @ A.transpose(0, 2, 1) + n * np.eye(n), dtype=dtype,
+        device="cuda")).contiguous()
+    B = torch.as_tensor(rng.standard_normal((S, n, m)), dtype=dtype,
+                        device="cuda")
+    assert _device_ops(lambda: chol_kernels.solve_upper_batched(L, B)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,s,d,dims_major", [
+    (35000, 49, 9, False), (4000, _S_AT_LIMIT, 9, False), (7, 3, 9, False),
+    # the dims-major paths' shapes: ladybug, stress, Venice; D = 9 and 81
+    (35000, 49, 9, True), (35000, 49, 81, True), (198088, 120, 9, True),
+    (198088, 120, 81, True), (900000, 800, 9, True),
+    (900000, 800, 81, True), (7, 3, 9, True)])
+def test_onehot_segment_sum_is_bit_identical_on_card(n, s, d, dims_major,
+                                                     dtype):
+    """The one-launch segment sums add in a fixed order: calls on the same
+    inputs give the same bits, in both layouts."""
     _need_card()
     rng = np.random.default_rng(11)
     ids = torch.as_tensor(rng.integers(-1, s + 1, size=n).astype(np.int32),
                           device="cuda")
-    rows = torch.as_tensor(rng.standard_normal((n, 9)), dtype=dtype,
+    rows = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype,
                            device="cuda")
-    first = onehot.onehot_scatter_add(ids, rows, s)
+    if dims_major:
+        rows_t = rows.T.contiguous()
+
+        def call():
+            return onehot.onehot_scatter_add_t(ids, rows_t, s)
+    else:
+        def call():
+            return onehot.onehot_scatter_add(ids, rows, s)
+    first = call()
+    want = onehot.onehot_scatter_add_plain(ids, rows, s)
+    tol = 2e-5 if dtype == torch.float32 else 1e-11
+    assert (first - want).abs().max() <= tol * want.abs().max()
     for _ in range(5):
-        assert torch.equal(onehot.onehot_scatter_add(ids, rows, s), first)
+        assert torch.equal(call(), first)
 
 
 def _graph_case(rng, n=35000, s=49, d=9):
@@ -385,39 +482,50 @@ def test_onehot_segment_sum_replays_in_a_cuda_graph_on_card():
 
 @pytest.mark.cuda
 def test_onehot_segment_sum_graphs_replay_concurrently_on_card():
-    """Two captured graphs of the one-launch segment sum, replayed at once
-    on two streams beside eager calls on two more, each many times: every
-    sum is right (each graph keeps its own partials, each stream's eager
-    calls their own)."""
+    """Captured graphs of the one-launch segment sums (two row-major, one
+    dims-major at the ladybug camera blocks' width), replayed at once on
+    three streams beside eager calls of each on three more, each many
+    times: every sum is right (each graph keeps its own partials, each
+    stream's eager calls their own)."""
     _need_card()
     rng = np.random.default_rng(10)
-    cases = [_graph_case(rng, n, s) for n, s in ((35000, 49), (20000, 60))]
-    graphs, outs = [], []
-    for ids, rows, s in cases:
+    cases = []
+    for n, s, d, dims_major in ((35000, 49, 9, False), (20000, 60, 9, False),
+                                (35000, 49, 81, True)):
+        ids, rows, s = _graph_case(rng, n, s, d)
         rows.copy_(torch.as_tensor(rng.standard_normal(tuple(rows.shape)),
                                    dtype=torch.float32, device="cuda"))
-        onehot.onehot_scatter_add(ids, rows, s)
+        if dims_major:
+            rows_t = rows.T.contiguous()
+            call = (lambda ids=ids, rows_t=rows_t, s=s:
+                    onehot.onehot_scatter_add_t(ids, rows_t, s))
+        else:
+            call = (lambda ids=ids, rows=rows, s=s:
+                    onehot.onehot_scatter_add(ids, rows, s))
+        cases.append((call, onehot.onehot_scatter_add_plain(ids, rows, s)))
+    graphs, outs = [], []
+    for call, _ in cases:
+        call()
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
-            outs.append(onehot.onehot_scatter_add(ids, rows, s))
+            outs.append(call())
         graphs.append(g)
     torch.cuda.synchronize()
-    wants = [onehot.onehot_scatter_add_plain(ids, rows, s)
-             for ids, rows, s in cases]
-    streams = [torch.cuda.Stream() for _ in range(4)]
+    streams = [torch.cuda.Stream() for _ in range(2 * len(cases))]
     eager = []
     for _ in range(50):
         for g, st in zip(graphs, streams):
             with torch.cuda.stream(st):
                 g.replay()
-        for k, st in enumerate(streams[2:]):
+        for k, st in enumerate(streams[len(cases):]):
             with torch.cuda.stream(st):
-                eager.append((k, onehot.onehot_scatter_add(*cases[k])))
+                eager.append((k, cases[k][0]()))
     torch.cuda.synchronize()
-    for got, want in zip(outs, wants):
+    for got, (_, want) in zip(outs, cases):
         assert (got - want).abs().max() <= 2e-5 * want.abs().max()
     for k, got in eager:
-        assert (got - wants[k]).abs().max() <= 2e-5 * wants[k].abs().max()
+        want = cases[k][1]
+        assert (got - want).abs().max() <= 2e-5 * want.abs().max()
 
 
 @pytest.mark.cuda

@@ -106,6 +106,29 @@ def test_plain_matches_pallas_kernel(kernel, lo, hi, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kernel", ["K6", "K9"])
+def test_dims_major_sum_of_camera_blocks_out_of_range(kernel, dtype):
+    """The dims-major segment sum at the camera blocks' width, D = 81, with
+    ids on both sides of [0, S): the wrapper against K6/K9 in interpret
+    mode and against numpy."""
+    s, d = 49, 81
+    idx, table, rows = _inputs(dtype, -3, s + 5, seed=81, s=s, d=d)
+    # KERNELS' calls take the module's S: call the kernels with this S
+    if kernel == "K6":
+        want = segment_sum_t_mxu(jnp.asarray(idx), jnp.asarray(rows.T), s,
+                                 precision=HI, interpret=True)
+    else:
+        want = segment_sum_t_mxu2(jnp.asarray(idx), jnp.asarray(rows.T), s,
+                                  precision=HI, block=128, interpret=True)
+    got = onehot.onehot_scatter_add_t(torch.as_tensor(idx),
+                                      torch.as_tensor(rows.T.copy()), s)
+    assert tuple(got.shape) == (s, d) and got.dtype == torch.from_numpy(
+        rows).dtype
+    _assert_close(got.numpy(), np.asarray(want), dtype, False)
+    _assert_close(got.numpy(), _reference(idx, table, rows)[1], dtype, False)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_wrappers_match_jax_onehot_forms(dtype):
     """The four wrappers against ``g2o_tpu.ops.onehot`` (the XLA one-hot
     products), multi-dimensional rows included."""

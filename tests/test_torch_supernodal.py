@@ -223,3 +223,31 @@ def test_setup_is_cached_per_problem(text):
     aux = s.aux
     assert s.setup(tp).aux is aux
     assert s.setup(tp, force=True).aux is not aux
+
+
+def test_backward_sweep_shapes_on_sphere2500(monkeypatch):
+    """The shapes the supernodal solve hands K3 on ``data/sphere2500.g2o``,
+    recorded at the kernel wrapper (on the CPU it runs the plain version):
+    per sweep, 17 single-column (S, 144, 1) batches in the backward
+    sweep's order, S in {1, 2, 3, 12, 55} and ten of them a single matrix;
+    ``refine=1`` sweeps twice.  ``chip_smoke.py`` times K3 at these batch sizes."""
+    seen = []
+    wrapped = chol_kernels.solve_upper_batched
+
+    def record(L, B):
+        seen.append((tuple(L.shape), tuple(B.shape)))
+        return wrapped(L, B)
+
+    monkeypatch.setattr(chol_kernels, "solve_upper_batched", record)
+    g = tio.load(SPHERE2500)
+    g.set_robust_kernel("Huber", 1.0)
+    tp = g.compile(dtype=torch.float32, device="cpu")
+    solver = g2o_tpu_torch.SupernodalCholeskySolver().setup(tp)
+    assert solver.refine == 1
+    dx = solver.solve(tp.data, tp.linearize_fn(tp.data, tp.estimates), LAM)
+    assert bool(torch.isfinite(dx).all())
+    # levels from the root down, each level's groups in order
+    sweep = [1, 1, 2, 1, 2, 1, 3, 1, 2, 1, 1, 12, 1, 1, 2, 55, 1]
+    want = [((S, 144, 144), (S, 144, 1)) for S in sweep]
+    assert seen == want + want
+    assert sum(S == 1 for S in sweep) == 10
