@@ -50,16 +50,19 @@ exits non-zero without printing a result:
    their plain versions, float32 and float64, row-major and dims-major, at
    the Pallas test shape, unsorted shapes with out-of-range ids (among them
    20,000 and 70,000 segments, on each side of the segment sum's
-   shared-memory limit), and the implicit Schur paths' shapes with their
-   solvers' own ids (the slab-ordered camera ids of the dims-major Venice,
-   ladybug and stress paths; the runtime-bucketed ladybug ids with their
-   sentinel); timed beside the plain version and one
+   shared-memory limit; a ragged N and ids that start off 16 bytes, which
+   take the dims-major gather's one-thread-per-edge branch), and the
+   implicit Schur paths' shapes with their solvers' own ids (the
+   slab-ordered camera ids of the dims-major Venice, ladybug and stress
+   paths; the runtime-bucketed ladybug ids with their sentinel); the
+   gathers must give the plain version's bits, the sums agree within the
+   tolerance; timed beside the plain version and one
    ``index_select``/``index_add`` at those path shapes, with the device µs
    and device operations of one call (``torch.profiler``); the row-major
    gather and segment sum (K7, K8) must put one operation on the card per
-   call at the runtime-bucketed ladybug shape, the dims-major segment sum
-   (K6/K9) at the three dims-major paths' shapes, where two calls must
-   also give the same bits;
+   call at the runtime-bucketed ladybug shape, the dims-major gather
+   (K5/K10) and segment sum (K6/K9) at the three dims-major paths' shapes,
+   where two calls of the sum must also give the same bits;
 8. main paths, implicit Schur: ``ImplicitSchurSolver`` with ``bench.py``'s
    settings, 10 LM iterations after a warm-up, float32, every camera free:
    ladybug, Venice (``bal-C800-P150000-K6``, with gauge deflation) and
@@ -76,7 +79,7 @@ Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
 untraced run's wall time per λ-trial, kernel launches per λ-trial and the
 kernels with the most device time; on the supernodal path also K3's device
-ms per λ-trial, on the dims-major implicit paths K6/K9's.
+ms per λ-trial, on the dims-major implicit paths K5/K10's and K6/K9's.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on each main path, its error against its plain version, its time,
@@ -147,6 +150,9 @@ IMPLICIT_PATHS = {
 # the row-major wrappers (K7, K8) that put one operation per call on the
 # card at the runtime-bucketed ladybug shape
 RUNTIME_ONE_OP = ("onehot_gather", "onehot_scatter_add")
+# the dims-major wrappers (K5/K10, K6/K9) that put one operation per call on
+# the card at the three dims-major paths' shapes
+DIMS_MAJOR_ONE_OP = ("onehot_gather_t", "onehot_scatter_add_t")
 ONEHOT = ("onehot_gather", "onehot_gather_t", "onehot_scatter_add",
           "onehot_scatter_add_t")
 # the JSON line's entry of each new kernel, and the wrappers that launch it
@@ -253,20 +259,23 @@ def bound(name, shape, width=4, rhs_identity=False):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_profile(torch, fn, calls=10, tries=3):
+def device_profile(torch, fn, calls=10, tries=5):
     """``(device µs, device operations)`` per call of ``fn``, from the
     device-side events (kernels, memsets, copies) that ``torch.profiler``
     records over ``calls`` calls after one warm call.  The tracer may drop
-    events of a window (on the H100, 9 of 10 one-kernel calls, and once
-    every event of a window), so the operations per call are the events
-    per call rounded, the time per call is the mean event's time times
-    that count, and a window with no events is traced again, up to
-    ``tries`` times in all."""
+    events of a window (on the H100, 9 of 10 one-kernel calls, and every
+    event of a window, or more than half of a 270 µs kernel's three windows
+    running), so a window with fewer events than calls (each call puts at
+    least one operation on the card) is traced again, up to ``tries``
+    times in all; the operations per call are the events per call of the
+    fullest window, rounded, and the time per call its mean event's time
+    times that count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    n, us = 0, 0.0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -275,11 +284,13 @@ def device_profile(torch, fn, calls=10, tries=3):
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
-        n = sum(e.count for e in ev)
-        if n:
-            ops = round(n / calls)
-            return sum(e.self_device_time_total for e in ev) / n * ops, ops
-    return 0.0, 0
+        if sum(e.count for e in ev) > n:
+            n = sum(e.count for e in ev)
+            us = sum(e.self_device_time_total for e in ev)
+        if n >= calls:
+            break
+    ops = round(n / calls)
+    return (us / n * ops if n else 0.0), ops
 
 
 def _in_turns(torch, fns, reps=20, rounds=2):
@@ -863,8 +874,13 @@ def onehot_kernel_phase(torch, oh, implicit):
     # values fits 96 KB (S <= 24576 in float32, 12288 in float64) and adds
     # into global memory above: S = 20000 lies below in float32 and above
     # in float64, S = 70000 above in both
+    # the dims-major gather takes 16-byte groups of edges only where N is a
+    # multiple of 4 (f32) or 2 (f64) and the ids are 16-byte aligned: a
+    # ragged N and ids that start one int into their tensor reach its
+    # one-thread-per-edge branch
     cases = [(700, 37, 5, "pallas_test"), (5000, 300, 81, "out_of_range"),
-             (300000, 20000, 9, "wide_s"), (300000, 70000, 9, "wide_s")]
+             (300000, 20000, 9, "wide_s"), (300000, 70000, 9, "wide_s"),
+             (40001, 120, 9, "ragged"), (40000, 120, 9, "misaligned")]
     for kind, (ids, S) in path_ids.items():
         cases += [(ids.shape[0], S, 9, kind), (ids.shape[0], S, 81, kind)]
     out = {}
@@ -875,8 +891,9 @@ def onehot_kernel_phase(torch, oh, implicit):
                 ids = path_ids[kind][0]
             else:
                 lo, hi = (0, S + 3) if kind == "pallas_test" else (-3, S + 5)
-                ids = torch.as_tensor(rng.integers(lo, hi, N).astype(np.int32),
-                                      device="cuda")
+                off = int(kind == "misaligned")
+                ids = torch.as_tensor(rng.integers(lo, hi, N + off)
+                                      .astype(np.int32), device="cuda")[off:]
             table = torch.as_tensor(rng.standard_normal((S, D)), dtype=dtype,
                                     device="cuda")
             rows = torch.as_tensor(rng.standard_normal((N, D)), dtype=dtype,
@@ -896,22 +913,29 @@ def onehot_kernel_phase(torch, oh, implicit):
                     lambda: oh.onehot_scatter_add_t(ids, rows_t, S),
                     lambda: oh.onehot_scatter_add_t_plain(ids, rows_t, S)),
             }
-            rel, err = {}, {}
+            rel, err, same = {}, {}, {}
             for k, (kern, plain) in fns.items():
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
                 err[k] = (got - want).abs().max().item()
                 rel[k] = err[k] / max(want.abs().max().item(), 1e-300)
-            ok = max(rel.values()) <= TOL[dname]
+                same[k] = torch.equal(got, want)
+            # the gathers move values: they must give the plain version's
+            # bits, the sums agree within TOL
+            ok = max(rel.values()) <= TOL[dname] and all(
+                same[k] for k in fns if "gather" in k)
             shape = f"{N}x{D}<->{S}"
             phase("kernels", kernel="gather+segment_sum", dtype=dname,
                   shape=shape, ids=kind,
                   **{f"{k}_rel_err": f"{v:.3e}" for k, v in rel.items()},
+                  gathers_bit_equal=all(same[k] for k in fns
+                                        if "gather" in k),
                   tol=TOL[dname], ok=ok)
             if not ok:
                 raise RuntimeError(f"a gather/segment-sum kernel disagrees "
                                    f"with its plain version at {dname} "
-                                   f"{shape} ({kind}): {rel}")
+                                   f"{shape} ({kind}): {rel}, bit-equal "
+                                   f"{same}")
             if kind not in path_ids or dtype != torch.float32:
                 continue
             # the library call: index_select / index_add over S+1 rows, the
@@ -948,12 +972,12 @@ def onehot_kernel_phase(torch, oh, implicit):
                       bound_ms=f"{b_ms:.4f}", bound_by=b_by,
                       device_us_per_call=f"{dev_us:.2f}",
                       device_ops_per_call=ops)
-                # K7 and K8 at the runtime-bucketed shape, K6/K9 at the
-                # dims-major paths': one operation on the card per call (no
-                # memset beside the kernel); K6/K9's sums the same bits on
-                # two calls
+                # K7 and K8 at the runtime-bucketed shape, K5/K10 and K6/K9
+                # at the dims-major paths': one operation on the card per
+                # call (no memset or copy beside the kernel); K6/K9's sums
+                # the same bits on two calls
                 one_op = (k in RUNTIME_ONE_OP if kind == "ladybug_runtime"
-                          else k == "onehot_scatter_add_t")
+                          else k in DIMS_MAJOR_ONE_OP)
                 if one_op and (D == 9 or kind != "ladybug_runtime") and \
                         ops != 1:
                     raise RuntimeError(f"{k} at {shape} puts {ops} "
@@ -983,7 +1007,8 @@ def implicit_main_path_phase(torch, g2o, wrappers, implicit):
             chi2_bound=cfg["bound"], extra=dict(
                 layout=form,
                 reference_g2o_cpu_pcg_ms_per_iteration=f"{cfg['ref_ms']:.1f}"),
-            watch={"k6": ("segment_sum_t_kernel", "scatter_add_kernel")}
+            watch={"k6": ("segment_sum_t_kernel", "scatter_add_kernel"),
+                   "k5": ("gather_t_kernel",)}
             if form == "dm" else None)
         trials = sum(res["trials_per_iteration"])
         phase(f"launches{tag[len('main_path'):]}", layout=form,

@@ -41,14 +41,39 @@
 // GATHER_TILE_ROWS rows: it reads each row's id once into shared memory (as
 // a table offset, -1 for an id out of range), then writes the tile's flat
 // slice of `out` as 16-byte stores (`out` must be 16-byte aligned, and a
-// tile is 2 KB of rows times D), scalar stores at its ragged end.
-// Otherwise (dims-major, K5/K10 on the paths, or a wider table) one thread
-// per output element in a grid-stride loop, four independent elements per
-// thread per pass (their id loads in flight together), the table staged in
-// shared memory while it fits the 48 KB of static shared memory, else read
-// through __ldg; in the dims-major layout a warp's idx reads are
-// consecutive too.  Bound: bytes, N*D values written, N ids and S*D values
-// read (about 36 MB at Venice, 9 x ~900k floats: 0.011 ms at 3.35 TB/s).
+// tile is 2 KB of rows times D), scalar stores at its ragged end.  A wider
+// table (no path): one thread per output element in a grid-stride loop,
+// four elements per thread per pass, the table staged while it fits 48 KB,
+// else read through __ldg.
+//
+// Gather, dims-major (K5/K10 on the three dims-major implicit paths: (S,
+// 9) -> (9, N) with S = 49, 120, 800 and N = 35000, 198088, 900000):
+// gather_t_kernel.  Bound: bytes, N*D values written, N ids and S*D values
+// read (36 MB at Venice: 10.75 us at 3.35 TB/s; 8.0 MB at stress, 2.37 us;
+// 1.4 MB at ladybug, 0.42 us).  A thread owns V = 16 / sizeof(T)
+// consecutive edges (4 in f32): it reads their ids once, in one vector
+// load, and for each row d stores the V values as one 16-byte store, so
+// each id is read once, no thread divides, and a warp writes 512
+// contiguous bytes of a row per store.  Each thread loads its next ids
+// before its stores.  The table is staged in shared memory once per block
+// (up to GATHER_T_STAGE_MAX), GATHER_T_STAGE_LOADS loads in flight per
+// thread while the first ids are in flight too; past that it is read
+// through __ldg.  Blocks of 1024 threads, halved down to 64 while the
+// items fill fewer than half as many blocks as there are SMs, as many
+// blocks as fit at once.  A ragged N (N % V != 0) or idx / out off 16
+// bytes takes the same kernel with one thread per edge (the id read once,
+// a warp's stores to a row consecutive).  Measured (device us per call,
+// f32, scripts/gather_t_probe.py and scripts/onehot_ab.py against the
+// parent's kernel in one process; H100 80GB HBM3, 700.00 W): ladybug /
+// stress / Venice 1.77 / 3.66 / 12.67 (parent: one thread per output
+// element, 1024-thread blocks, 2.44 / 6.01 / 20.28); Venice reaches 85% of
+// its bound, the two small shapes pay the launch (~1.2 us) and the first
+// ids' latency.  Tried there: the table read through L1 (__ldg) with no
+// staging barrier 2.21 / 4.14 / 15.93 (a warp's 32 random reads touch ~30
+// lines); the staging one load at a time 2.07 / 3.81 / 14.49; fixed blocks
+// of 1024 threads 4.14 / 4.81 / 13.19 and of 128 1.84 / 3.71 / 15.89; one
+// thread per edge everywhere 1.89 / 4.55 / 12.61; the next ids loaded after
+// the stores, or one block per SM walking several groups, within noise.
 //
 // Segment sum, row-major with S*D <= ROWSUM_MAX_CELLS (K8 on the path):
 // one cooperative launch, no memset, no global atomics, and the same bits
@@ -212,6 +237,13 @@ constexpr int UNROLL = 4;                       // elements per thread per pass
 constexpr int GATHER_THREADS = 256;
 constexpr int GATHER_TILE_ROWS = 512;
 
+constexpr int GATHER_T_THREADS = 1024;          // the dims-major gather's
+constexpr int GATHER_T_MIN_THREADS = 64;        // largest and least block
+constexpr int GATHER_T_SM_THREADS = 2048;       // an SM's resident threads
+constexpr int GATHER_T_SM_SMEM = 228 * 1024;    // an SM's shared memory
+constexpr int GATHER_T_STAGE_MAX = 96 * 1024;   // the largest staged table
+constexpr int GATHER_T_STAGE_LOADS = 8;         // its loads in flight per thread
+
 constexpr int ROWSUM_THREADS = 512;             // one block per SM
 constexpr int ROWSUM_WARPS = ROWSUM_THREADS / 32;
 constexpr int ROWSUM_BATCH = 32;                // rows in flight per warp (<= 32)
@@ -320,13 +352,97 @@ gather_rows_kernel(const T* __restrict__ table, const int* __restrict__ idx,
 }
 
 // ------------------------------------------------------------------------ //
+// dims-major gather
+// ------------------------------------------------------------------------ //
+
+// the ids of V consecutive edges in one load (16 bytes in f32, 8 in f64)
+__device__ __forceinline__ void ldg_ids(const int* p, int (&s)[4]) {
+  const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+  s[0] = t.x; s[1] = t.y; s[2] = t.z; s[3] = t.w;
+}
+__device__ __forceinline__ void ldg_ids(const int* p, int (&s)[2]) {
+  const int2 t = __ldg(reinterpret_cast<const int2*>(p));
+  s[0] = t.x; s[1] = t.y;
+}
+
+// out (D, N): out[d][n] = table[idx[n]][d], zero for an id outside [0, S).
+// vec: a thread owns groups of V = 16 / sizeof(T) consecutive edges (N % V
+// == 0, idx and out 16-byte aligned): their ids in one load, then for each
+// row d the V values in one 16-byte store, so a warp writes 512 bytes of a
+// row per store.  Else one thread per edge, its id read once, and a warp's
+// stores to a row are consecutive.  Each thread's next ids are loaded
+// before its stores.  STAGE: the table staged in shared memory once per
+// block (the first ids in flight meanwhile), else read through __ldg.
+template <typename T, bool STAGE>
+__global__ void __launch_bounds__(GATHER_T_THREADS)
+gather_t_kernel(const T* __restrict__ table, const int* __restrict__ idx,
+                T* __restrict__ out, int N, int S, int D, int vec) {
+  constexpr int V = 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* staged = reinterpret_cast<T*>(smem_raw);
+  const unsigned items = vec ? N / V : N;   // groups of V edges, or edges
+  const unsigned stride = gridDim.x * blockDim.x;
+  unsigned it = blockIdx.x * blockDim.x + threadIdx.x;
+  int s[V] = {};
+  auto load = [&](unsigned i) {
+    if (i >= items) return;
+    if (vec) {
+      ldg_ids(idx + (size_t)i * V, s);
+    } else {
+      s[0] = __ldg(idx + i);
+    }
+  };
+  auto value = [&](int k) { return STAGE ? staged[k] : __ldg(table + k); };
+  load(it);
+  if (STAGE) {   // GATHER_T_STAGE_LOADS loads in flight per thread
+    const int cells = S * D;
+    for (int j0 = threadIdx.x; j0 < cells; j0 += GATHER_T_STAGE_LOADS * blockDim.x) {
+      T t[GATHER_T_STAGE_LOADS];
+#pragma unroll
+      for (int u = 0; u < GATHER_T_STAGE_LOADS; ++u) {
+        const int j = j0 + u * blockDim.x;
+        t[u] = j < cells ? __ldg(table + j) : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < GATHER_T_STAGE_LOADS; ++u) {
+        const int j = j0 + u * blockDim.x;
+        if (j < cells) staged[j] = t[u];
+      }
+    }
+    __syncthreads();
+  }
+  for (; it < items; it += stride) {
+    int off[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) off[u] = s[u] >= 0 && s[u] < S ? s[u] * D : -1;
+    load(it + stride);                        // the next ids, before the stores
+    if (vec) {
+      T* o = out + (size_t)it * V;
+#pragma unroll 9
+      for (int d = 0; d < D; ++d) {
+        T v[V];
+#pragma unroll
+        for (int u = 0; u < V; ++u) v[u] = off[u] >= 0 ? value(off[u] + d) : T(0);
+        store16(o + (size_t)d * N, v);
+      }
+    } else {
+      T* o = out + it;
+#pragma unroll 9
+      for (int d = 0; d < D; ++d) o[(size_t)d * N] = off[0] >= 0 ? value(off[0] + d) : T(0);
+    }
+  }
+}
+
+// ------------------------------------------------------------------------ //
 // grid kernels
 // ------------------------------------------------------------------------ //
 
+// the row-major gather with a table past the small-table kernel's shared
+// memory (no path): one thread per output element
 template <typename T, bool STAGE>
 __global__ void __launch_bounds__(THREADS)
 gather_kernel(const T* __restrict__ table, const int* __restrict__ idx,
-              T* __restrict__ out, int N, int S, int D, int dims_major) {
+              T* __restrict__ out, int N, int S, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tab = reinterpret_cast<T*>(smem_raw);
   if (STAGE) {
@@ -348,7 +464,7 @@ gather_kernel(const T* __restrict__ table, const int* __restrict__ idx,
       d[u] = 0;
       if (i < total) {
         unsigned n;
-        split(i, N, D, dims_major, n, d[u]);
+        split(i, N, D, 0, n, d[u]);
         s[u] = __ldg(idx + n);
       }
     }
@@ -792,16 +908,50 @@ int gather(const void* table, const void* idx, void* out, int N, int S,
         (const T*)table, (const int*)idx, (T*)out, N, S, D);
     return (int)cudaGetLastError();
   }
+  if (dims_major) {
+    constexpr int V = 16 / (int)sizeof(T);
+    const int vec = N % V == 0 && (reinterpret_cast<uintptr_t>(idx) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    const long long items = vec ? N / V : N;
+    // blocks of GATHER_T_THREADS, halved (down to GATHER_T_MIN_THREADS)
+    // while the items fill fewer than half as many blocks as there are
+    // SMs, so that a small call still spreads over the card; as many
+    // blocks as the items need, at most as many as the SMs hold at once
+    // (threads, and the staged table beside the 1 KB each block keeps)
+    const bool stage = tbytes <= GATHER_T_STAGE_MAX;
+    long long bt = GATHER_T_THREADS;
+    while (bt > GATHER_T_MIN_THREADS && 2 * items < bt * sms) bt /= 2;
+    long long per_sm = GATHER_T_SM_THREADS / bt;
+    if (stage && GATHER_T_SM_SMEM / (tbytes + 1024) < per_sm)
+      per_sm = GATHER_T_SM_SMEM / (tbytes + 1024);
+    long long blocks = (items + bt - 1) / bt;
+    if (blocks > per_sm * sms) blocks = per_sm * sms;
+    if (blocks < 1) blocks = 1;
+    if (stage) {
+      if (tbytes > STATIC_SMEM) {
+        static std::atomic<bool> raised[MAX_DEVICES];
+        err = raise_smem(gather_t_kernel<T, true>, GATHER_T_STAGE_MAX, dev, raised);
+        if (err) return err;
+      }
+      gather_t_kernel<T, true><<<(unsigned)blocks, (unsigned)bt, (size_t)tbytes,
+                                 st>>>(
+          (const T*)table, (const int*)idx, (T*)out, N, S, D, vec);
+    } else {
+      gather_t_kernel<T, false><<<(unsigned)blocks, (unsigned)bt, 0, st>>>(
+          (const T*)table, (const int*)idx, (T*)out, N, S, D, vec);
+    }
+    return (int)cudaGetLastError();
+  }
   const long long total = (long long)N * D;
   long long blocks = (total + THREADS * UNROLL - 1) / (THREADS * UNROLL);
   if (blocks > 2LL * sms) blocks = 2LL * sms;
   if (blocks < 1) blocks = 1;
   if (tbytes <= STATIC_SMEM) {
     gather_kernel<T, true><<<(unsigned)blocks, THREADS, (size_t)tbytes, st>>>(
-        (const T*)table, (const int*)idx, (T*)out, N, S, D, dims_major);
+        (const T*)table, (const int*)idx, (T*)out, N, S, D);
   } else {
     gather_kernel<T, false><<<(unsigned)blocks, THREADS, 0, st>>>(
-        (const T*)table, (const int*)idx, (T*)out, N, S, D, dims_major);
+        (const T*)table, (const int*)idx, (T*)out, N, S, D);
   }
   return (int)cudaGetLastError();
 }

@@ -20,8 +20,13 @@ and how they are laid out), built by
 
 * the row-major gather with a table of at most ~46 KB: the table and each
   tile's ids in shared memory, the output written as 16-byte stores;
-* every other gather (the dims-major layout, a wider table): one thread
-  per output element;
+  with a wider table: one thread per output element;
+* the dims-major gather (K5/K10 on the three dims-major implicit paths):
+  a thread per 16-byte group of edges (4 in float32, 2 in float64), their
+  ids read once in one load and each output row written as one 16-byte
+  store, the table staged in shared memory once per block; one thread per
+  edge where N is not a multiple of the group or the ids or the output are
+  not 16-byte aligned;
 * the row-major segment sum with ``S·D <= ROWSUM_MAX_CELLS`` (K8 at the
   ladybug shape): one cooperative launch that sums in a fixed order (the
   same bits on every run) into per-block partials (a scratch the library

@@ -325,26 +325,28 @@ def test_onehot_kernels_match_plain_on_card(n, s, d, lo, hi, offset, dtype,
         assert (a - b).abs().max() <= tol * b.abs().max()
 
 
-def _device_ops(fn, calls=10, tries=3):
+def _device_ops(fn, calls=10, tries=5):
     """Operations one call of ``fn`` puts on the card: torch.profiler's
     device events over ``calls`` calls, per call, rounded (the tracer may
-    drop events of a window; a window with none is traced again)."""
+    drop events of a window; a window with fewer events than calls is
+    traced again, and the fullest window counts)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    n = 0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-        if n:
-            return round(n / calls)
-    return 0
+        n = max(n, sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA))
+        if n >= calls:
+            break
+    return round(n / calls)
 
 
 # the dims-major segment sum's one-launch limits: SEGT_MAX_CELLS (the
@@ -395,6 +397,76 @@ def test_onehot_segment_sum_device_operations_on_card(n, s, d, ops, ops_t,
     for fn in (lambda: onehot.onehot_gather(ids, table),
                lambda: onehot.onehot_gather_t(ids, table)):
         assert _device_ops(fn) == 1
+
+
+# the dims-major gather's branches (gather_t_kernel of
+# csrc/gather_segment.cu): (n, s, d, lo, hi, id_offset), n ids drawn from
+# [lo, hi) into a table of s rows of width d; id_offset > 0 takes the ids
+# as a view that starts id_offset ints into a larger tensor (its data_ptr
+# off 16 bytes).  16-byte groups of edges need N % 4 == 0 in float32 and
+# N % 2 == 0 in float64, and aligned ids; else one thread per edge.
+_GATHER_T_CASES = [
+    (4001, 49, 9, -3, 54, 0),               # N = 4k+1: one thread per edge
+    (4002, 49, 9, -3, 54, 0),               # 4k+2: f64 groups, f32 edges
+    (4003, 49, 9, -3, 54, 0),               # 4k+3
+    (3, 49, 9, -3, 54, 0),                  # N below one block
+    (5, 7, 9, -2, 9, 0),
+    (4000, 49, 9, -3, 54, 1),               # ids off 16 bytes: 1, 2, 3 ints
+    (4000, 49, 9, -3, 54, 2),
+    (4000, 49, 9, -3, 54, 3),
+    (4000, 49, 1, -3, 54, 0),               # D = 1, 5, 81
+    (4000, 49, 5, -3, 54, 0),
+    (4000, 49, 81, -3, 54, 0),
+    (4000, 800, 81, -3, 805, 0),            # a table past the staged one
+    (30000, 20000, 9, -3, 20005, 0),        # wide S, both types past it
+    (2000000, 800, 9, -1, 801, 0),          # more groups than one pass
+    (0, 49, 9, 0, 49, 0),                   # N = 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,s,d,lo,hi,offset", [
+    pytest.param(*c, id=_case_id(c)) for c in _GATHER_T_CASES])
+def test_onehot_gather_t_branches_match_plain_on_card(n, s, d, lo, hi, offset,
+                                                      dtype):
+    """The dims-major gather equals its plain version bit for bit in each
+    branch: 16-byte groups or one thread per edge (ragged N, ids off 16
+    bytes), a staged table or one read through L1, ids out of range on
+    both sides, widths 1 to 81; one launch per call, none for N = 0."""
+    _need_card()
+    rng = np.random.default_rng(n + d + offset)
+    ids = torch.as_tensor(rng.integers(lo, hi, size=n + offset)
+                          .astype(np.int32), device="cuda")[offset:]
+    if offset:
+        assert ids.is_contiguous() and ids.data_ptr() % 16
+    table = torch.as_tensor(rng.standard_normal((s, d)), dtype=dtype,
+                            device="cuda")
+    before = onehot.onehot_gather_t.launches
+    got = onehot.onehot_gather_t(ids, table)
+    want = onehot.onehot_gather_t_plain(ids, table)
+    torch.cuda.synchronize()
+    assert onehot.onehot_gather_t.launches == before + (n > 0)
+    assert got.shape == (d, n) and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,s", [(35000, 49), (198088, 120), (900000, 800)])
+def test_onehot_gather_t_one_operation_at_path_shapes_on_card(n, s, dtype):
+    """At the three dims-major implicit paths' shapes (ladybug, stress,
+    Venice; D = 9) the gather puts one operation on the card per call (no
+    memset, no copy) and equals the plain version bit for bit."""
+    _need_card()
+    rng = np.random.default_rng(n)
+    ids = torch.as_tensor(rng.integers(0, s, size=n).astype(np.int32),
+                          device="cuda")
+    table = torch.as_tensor(rng.standard_normal((s, 9)), dtype=dtype,
+                            device="cuda")
+    assert _device_ops(lambda: onehot.onehot_gather_t(ids, table)) == 1
+    assert torch.equal(onehot.onehot_gather_t(ids, table),
+                       onehot.onehot_gather_t_plain(ids, table))
 
 
 @pytest.mark.cuda

@@ -129,6 +129,30 @@ def test_dims_major_sum_of_camera_blocks_out_of_range(kernel, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [701, 702, 703])
+@pytest.mark.parametrize("kernel", ["K5", "K10"])
+def test_dims_major_gather_ragged_n_out_of_range(kernel, n, dtype):
+    """The dims-major gather at an N that is not a multiple of 4 (nor, at
+    701 and 703, of 2: the kernel's scalar branch on the card), at the
+    camera width D = 9 and with ids on both sides of [0, S): the wrapper
+    against K5/K10 in interpret mode and against numpy."""
+    s, d = 49, 9
+    idx, table, rows = _inputs(dtype, -3, s + 5, seed=n, n=n, s=s, d=d)
+    if kernel == "K5":
+        want = gather_t_mxu(jnp.asarray(idx), jnp.asarray(table),
+                            precision=HI, interpret=True)
+    else:
+        want = gather_t_mxu2(jnp.asarray(idx), jnp.asarray(table),
+                             precision=HI, block=128, interpret=True)
+    got = onehot.onehot_gather_t(torch.as_tensor(idx), torch.as_tensor(table))
+    assert tuple(got.shape) == (d, n) and got.dtype == torch.from_numpy(
+        table).dtype
+    _assert_close(got.numpy(), np.asarray(want), dtype, True)
+    _assert_close(got.numpy(), _reference(idx, table, rows)[0].T, dtype,
+                  True)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_wrappers_match_jax_onehot_forms(dtype):
     """The four wrappers against ``g2o_tpu.ops.onehot`` (the XLA one-hot
     products), multi-dimensional rows included."""
