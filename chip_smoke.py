@@ -75,6 +75,24 @@ exits non-zero without printing a result:
    relative residual of one solve; on the runtime-bucketed problem also the
    difference from the explicit solver's step.
 
+9. main path, manhattan3500 (``bench.py``'s ``bench_manhattan``):
+   ``create_manhattan(3500, seed=0)`` (3500 SE2 poses, 6565 edges), f32
+   on the card, 60 fused LM iterations with ``PCGSolver(precond="chunk2",
+   chunk_size=16, max_iter=32, tol=1e-2, precond_mode="every_k",
+   precond_refresh_every=8)``: chi2 must fall within 1% of the reference
+   g2o's lm_var chi2 after 30 iterations, and K1/K2 launch at (1, 672,
+   672), the coarse level of 219 chunks × 3 = 657 columns padded to 672;
+   K1/K2 on that run's real coarse matrix as on sphere2500; the same run
+   with ``precond_mode="per_solve"`` beside it; then 6 Gauss-Newton
+   iterations with the deep chunk2 CG from the LM plateau, which must
+   reach the reference's lm_var chi2; then the exact phase at f64 from
+   the original estimates, ``optimize_gn_host`` over ``HostCholSolver``
+   (blocks on the card, the sparse factor on the host) and, beside it,
+   ``optimize_fused_gn`` over ``SupernodalCholeskySolver`` all on the
+   card, each of which must reach the reference's gn_var fixed point
+   (+0.25) within 8 iterations, each traced as well (device ms per GN
+   iteration); and a save/reload of the exact result.
+
 Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
 untraced run's wall time per λ-trial, kernel launches per λ-trial and the
@@ -176,11 +194,18 @@ SHAPES = [(7, 12, 5), (33, 48, 1), (5, 126, 96), (1, 960, 960),
 # panels (K1 on the diagonal panels, K2 on the below-panel blocks, K2 and
 # K3 on the forward and backward sweeps)
 TIMED = [(1, 960, 960), (55, 144, 144), (55, 144, 192), (55, 144, 1)]
+# manhattan3500's chunk2 coarse level: K1 and K2 (B = I) only
+COARSE_TIMED = [(1, 672, 672)]
 # the supernodal sweeps' other single-column batches, K2 and K3 timed alone
 # (S = 1 carries ten of each sweep's 17 K3 calls)
 SWEEP_TIMED = [(1, 144, 1), (2, 144, 1), (3, 144, 1), (12, 144, 1)]
 KERNELS = ("chol_batched", "solve_lower_batched", "solve_upper_batched",
            "segment_sum")
+# manhattan3500 (baseline_measured.json manhattan3500): the reference g2o's
+# lm_var chi2 after 30 LM iterations (phase 1 within 1% of it, phase 2 at
+# or below it) and its gn_var fixed point (phase 3, +0.25 as bench.py)
+MANHATTAN_LM = 9146.503719
+MANHATTAN_GN = 9116.756453
 # the shape each kernel's entry in the JSON line reports
 PRIMARY = {"chol_batched": (1, 960, 960),
            "solve_lower_batched": (1, 960, 960),
@@ -236,9 +261,10 @@ def bound(name, shape, width=4, rhs_identity=False):
     over the memory rate, and its operations over the float32 rate.  The
     factorization and the triangular solves read only the lower triangle
     of their matrix, n(n+1)/2 values, and the factorization writes only
-    the lower triangle of its factor.  A triangular solve against ``B =
-    I`` (``rhs_identity``) needs n³/6 multiply-adds, not n²m/2: the
-    inverse of a triangle is a triangle."""
+    the lower triangle of its factor.  Operations count a multiply-add as
+    two, as the peak rate does: the factorization needs n³/6 multiply-adds,
+    a triangular solve n²m/2, and one against ``B = I``
+    (``rhs_identity``) n³/6: the inverse of a triangle is a triangle."""
     if name in ("segment_sum", "onehot_scatter_add", "onehot_gather"):
         # (N, D) rows and N int32 ids against an (S, D) table; the sum
         # adds N*D values, the gather only moves them
@@ -249,7 +275,7 @@ def bound(name, shape, width=4, rhs_identity=False):
         S, n, m = shape
         tri = S * n * (n + 1) // 2
         if name == "chol_batched":
-            nbytes, ops = 2 * tri * width, 2 * S * n ** 3 / 3
+            nbytes, ops = 2 * tri * width, S * n ** 3 / 3
         else:                      # n²m/2 multiply-adds
             nbytes, ops = (tri + 2 * S * n * m) * width, S * n * n * m
             if rhs_identity:
@@ -350,7 +376,8 @@ def kernel_phase(torch, ck):
                 raise RuntimeError(f"a kernel disagrees with its plain "
                                    f"version at {dname} {(S, n, m)}: {rel}")
             timed = (KERNELS[:3] if (S, n, m) in TIMED else KERNELS[1:3]
-                     if (S, n, m) in SWEEP_TIMED else ())
+                     if (S, n, m) in SWEEP_TIMED else KERNELS[:2]
+                     if (S, n, m) in COARSE_TIMED else ())
             if timed and dtype == torch.float32:
                 # in turns: plain, library, kernel, kernel, library, plain
                 res = {}
@@ -471,34 +498,46 @@ def layer_times(torch, p, solver, lam):
                 cg_ms_per_iteration=cg_ms / max(st["cg_iterations"], 1))
 
 
+def _profile(run):
+    """``run()`` under ``torch.profiler``: ``(its result, the device-side
+    events as (µs, name, count) with the longest first, the kernel
+    launches on the host)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run()
+    ka = prof.key_averages()
+    # device-side events only (kernels, memsets, copies): an operator's
+    # entry also reports the time of the kernels it launched
+    kern = sorted(((e.self_device_time_total, e.key, e.count) for e in ka
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    # kernel launches on the host, cooperative ones included
+    launches = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cudaLaunchCooperativeKernel"))
+    return res, kern, launches
+
+
+def _top(kern, n=8):
+    return ";".join(f"{k[:48].replace(' ', '_')}:{us / 1e3:.3f}ms/{c}"
+                    for us, k, c in kern[:n])
+
+
 def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5, watch=None):
     """``torch.profiler`` over ``iters`` LM iterations from ``est0``.  The
     tracer slows the host, so the busy share divides the traced device time
     per λ-trial by the UNtraced run's wall time per λ-trial.  ``watch``
     ({label: kernel-name substrings}) adds each label's device ms per
     λ-trial: the kernels whose name holds one of its substrings."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     final = p.estimates
     p.set_estimates({t: v.clone() for t, v in est0.items()})
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = g2o.optimize_fused(p, solver, iters)
+    res, kern, launches = _profile(
+        lambda: g2o.optimize_fused(p, solver, iters))
     p.set_estimates(final)
     trials = sum(res["trials_per_iteration"])
-    ka = prof.key_averages()
-
-    # device-side events only (kernels, copies): an operator's entry also
-    # reports the time of the kernels it launched
-    kern = sorted(((e.self_device_time_total, e.key, e.count) for e in ka
-                   if e.device_type == DeviceType.CUDA), reverse=True)
     dev_ms = sum(k[0] for k in kern) / 1e3 / trials
-    # kernel launches on the host (cooperative ones included), and every
-    # operation on the card: kernels, memsets, copies
-    launches = sum(e.count for e in ka if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-        "cudaLaunchCooperativeKernel"))
     dev_ops = sum(k[2] for k in kern)
     phase(f"trace_{tag}", iterations=iters, lm_trials=trials,
           device_ms_per_lambda_trial=f"{dev_ms:.3f}",
@@ -510,8 +549,29 @@ def trace(g2o, p, est0, solver, tag, ms_per_trial, iters=5, watch=None):
               sum(us for us, key, _ in kern
                   if any(w in key for w in names)) / 1e3 / trials)
              for label, names in (watch or {}).items()},
-          top=";".join(f"{k[:48].replace(' ', '_')}:{us / 1e3:.3f}ms/{n}"
-                       for us, k, n in kern[:8]))
+          top=_top(kern))
+    if not kern:
+        raise RuntimeError(f"the {tag} trace shows no device time")
+
+
+def trace_gn(p, est0, run, tag, ms_per_iteration, iters):
+    """``torch.profiler`` over ``run(iters)``, a GN run of ``iters``
+    iterations from ``est0``: device ms per GN iteration, and the busy
+    share against the UNtraced run's wall ms per iteration."""
+    final = p.estimates
+    p.set_estimates({t: v.clone() for t, v in est0.items()})
+    res, kern, launches = _profile(lambda: run(iters))
+    p.set_estimates(final)
+    n = max(res["iterations"], 1)
+    dev_ms = sum(k[0] for k in kern) / 1e3 / n
+    phase(f"trace_{tag}", iterations=res["iterations"],
+          device_ms_per_gn_iteration=f"{dev_ms:.3f}",
+          untraced_ms_per_gn_iteration=f"{ms_per_iteration:.3f}",
+          device_busy_share=f"{dev_ms / ms_per_iteration:.4f}",
+          kernel_launches_per_gn_iteration=f"{launches / n:.1f}",
+          device_ops_per_gn_iteration=(
+              f"{sum(k[2] for k in kern) / n:.1f}"),
+          top=_top(kern))
     if not kern:
         raise RuntimeError(f"the {tag} trace shows no device time")
 
@@ -522,7 +582,8 @@ def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
     with every kernel count set to 0 just before; print the ``[tag]`` line
     (plus the ``extra`` facts) and raise unless every chi2 is finite, the
     final chi2 is within ``chi2_bound`` and each kernel of ``need``
-    launched.  Returns the result and the launch counts of that run."""
+    launched; then trace it (``[trace_<tag>]``).  Returns the
+    result and the launch counts of that run."""
     g2o.optimize_fused(p, solver, 2)                 # warm-up
     p.set_estimates({t: v.clone() for t, v in est0.items()})
     for w in wrappers.values():
@@ -557,8 +618,8 @@ def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
     if not res["chi2_final"] <= chi2_bound:
         raise RuntimeError(f"{tag}: final chi2 {res['chi2_final']} after {n} "
                            f"iterations; need <= {chi2_bound}")
-    trace(g2o, p, est0, solver, tag, res["wall_s"] * 1e3 / max(trials, 1),
-          watch=watch)
+    trace(g2o, p, est0, solver, tag,
+          res["wall_s"] * 1e3 / max(trials, 1), watch=watch)
     return res, launches
 
 
@@ -578,15 +639,7 @@ def main_path_phase(torch, g2o, wrappers):
     solver = g2o.PCGSolver(max_iter=50, tol=1e-1, precond="chunk2",
                            chunk_size=16)
     # keep the coarse matrix of the first λ-trial for coarse_matrix_check
-    coarse, assemble = [], solver._assemble_coarse
-
-    def assemble_and_keep(*args):
-        Hd = assemble(*args)
-        if not coarse:
-            coarse.append(Hd.clone())
-        return Hd
-
-    solver._assemble_coarse = assemble_and_keep
+    coarse = _keep_first_coarse(solver)
     res, launches = _run_lm(torch, g2o, wrappers, p, est0, solver,
                             "main_path",
                             need=("chol_batched", "solve_lower_batched"))
@@ -628,6 +681,206 @@ def main_path_phase(torch, g2o, wrappers):
     phase("layers_supernodal", **{k: f"{v:.3e}" if "residual" in k
                                   else f"{v:.3f}" for k, v in lt.items()})
     return {"chunk2": launches, "supernodal": launches_sn}
+
+
+def _keep_first_coarse(solver):
+    """Make ``solver`` keep the coarse matrix of its next assembly; returns
+    the list it lands in.  ``del solver._assemble_coarse`` restores it."""
+    coarse, assemble = [], solver._assemble_coarse
+
+    def assemble_and_keep(*args):
+        Hd = assemble(*args)
+        if not coarse:
+            coarse.append(Hd.clone())
+        return Hd
+
+    solver._assemble_coarse = assemble_and_keep
+    return coarse
+
+
+def _first_at_or_below(chis, bound):
+    return next((i for i, c in enumerate(chis) if c <= bound), None)
+
+
+def _launches(wrappers):
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def manhattan_path_phase(torch, g2o, wrappers):
+    """``bench.py``'s ``bench_manhattan`` through the port's entry points:
+    the f32 every_k LM phase, the f32 GN polish and the f64 exact phase
+    (hybrid host Cholesky, and the all-card supernodal GN beside it).
+    Returns the launch counts of the LM run and of the polish run."""
+    from g2o_tpu_torch.io import g2o_format
+    from g2o_tpu_torch.sim.generators import create_manhattan
+
+    t0 = time.perf_counter()
+    g = create_manhattan(n_poses=3500, seed=0)
+    p = g.compile(dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    solver = g2o.PCGSolver(max_iter=32, tol=1e-2, precond="chunk2",
+                           chunk_size=16, precond_mode="every_k",
+                           precond_refresh_every=8)
+    solver.setup(p)
+    torch.cuda.synchronize()
+    cfg = solver._chunk
+    phase("load_manhattan", vertices=g.num_vertices, edges=g.num_edges,
+          coarse_columns=cfg["ncd"], coarse_padded=cfg["ncd_pad"],
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    if (g.num_vertices, g.num_edges, cfg["ncd_pad"]) != (3500, 6565, 672):
+        raise RuntimeError("manhattan3500 is not 3500 poses / 6565 edges "
+                           "with a 672-column coarse level")
+    est0 = {t: v.clone() for t, v in p.estimates.items()}
+
+    # phase 1: every_k LM; the coarse matrix of its first λ-trial is kept
+    bound = MANHATTAN_LM * 1.01
+    coarse = _keep_first_coarse(solver)
+    res, launches = _run_lm(
+        torch, g2o, wrappers, p, est0, solver, "manhattan",
+        need=("chol_batched", "solve_lower_batched"), iters=60,
+        chi2_bound=bound,
+        watch={"k1k2": ("chol_tiles", "solve_lower_tiles")})
+    del solver._assemble_coarse
+    coarse_matrix_check(torch, coarse[0])
+    plateau = {t: v.clone() for t, v in p.estimates.items()}
+    n, trials = res["iterations"], sum(res["trials_per_iteration"])
+    chis = res["chi2_per_iteration"] + [res["chi2_final"]]
+    cross = _first_at_or_below(chis, bound)
+    k12 = launches["chol_batched"] + launches["solve_lower_batched"]
+
+    # the same run with a preconditioner built on every solve
+    ps = g2o.PCGSolver(max_iter=32, tol=1e-2, precond="chunk2",
+                       chunk_size=16)
+    g2o.optimize_fused(p, ps, 2)
+    p.set_estimates({t: v.clone() for t, v in est0.items()})
+    before = _launches(wrappers)
+    res_ps = g2o.optimize_fused(p, ps, 60)
+    k12_ps = sum(wrappers[k].launches - before[k]
+                 for k in ("chol_batched", "solve_lower_batched"))
+    n_ps = res_ps["iterations"]
+    trials_ps = sum(res_ps["trials_per_iteration"])
+    chis_ps = res_ps["chi2_per_iteration"] + [res_ps["chi2_final"]]
+    phase("main_path_manhattan", iterations=n, lm_trials=trials,
+          ms_per_lambda_trial=f"{res['wall_s'] * 1e3 / max(trials, 1):.3f}",
+          ms_per_lm_iteration=f"{res['wall_s'] * 1e3 / max(n, 1):.3f}",
+          trials_per_iteration=f"{trials / max(n, 1):.3f}",
+          cg_per_iteration=(
+              f"{sum(res['cg_per_iteration']) / max(n, 1):.2f}"),
+          first_iteration_within_bound=cross, bound=f"{bound:.2f}",
+          chi2_final=f"{res['chi2_final']:.4f}",
+          k1_k2_launches_per_lambda_trial=f"{k12 / 2 / max(trials, 1):.4f}",
+          per_solve_ms_per_lambda_trial=
+          f"{res_ps['wall_s'] * 1e3 / max(trials_ps, 1):.3f}",
+          per_solve_ms_per_lm_iteration=
+          f"{res_ps['wall_s'] * 1e3 / max(n_ps, 1):.3f}",
+          per_solve_cg_per_iteration=
+          f"{sum(res_ps['cg_per_iteration']) / max(n_ps, 1):.2f}",
+          per_solve_first_iteration_within_bound=_first_at_or_below(
+              chis_ps, bound),
+          per_solve_chi2_final=f"{res_ps['chi2_final']:.4f}",
+          per_solve_k1_k2_launches_per_lambda_trial=
+          f"{k12_ps / 2 / max(trials_ps, 1):.4f}")
+    if cross is None:
+        raise RuntimeError(f"manhattan LM: chi2 {res['chi2_final']} never "
+                           f"within {bound}")
+    if not all(math.isfinite(c) for c in chis_ps):
+        raise RuntimeError("non-finite chi2 on the per-solve manhattan run")
+
+    # phase 2: GN polish with the deep chunk2 CG from the plateau
+    deep = g2o.PCGSolver(max_iter=128, tol=1e-6, precond="chunk2",
+                         chunk_size=16, carry_factor=0.01,
+                         matvec_precision="highest")
+    g2o.optimize_fused_gn(p, deep, 1)
+    p.set_estimates({t: v.clone() for t, v in plateau.items()})
+    for w in wrappers.values():
+        w.launches = 0
+    res2 = g2o.optimize_fused_gn(p, deep, 6)
+    launches2 = _launches(wrappers)
+    n2 = res2["iterations"]
+    chis2 = res2["chi2_per_iteration"] + [res2["chi2_final"]]
+    cross2 = _first_at_or_below(chis2, MANHATTAN_LM)
+    phase("polish_manhattan", iterations=n2,
+          ms_per_gn_iteration=f"{res2['wall_s'] * 1e3 / max(n2, 1):.3f}",
+          cg_per_iteration=(
+              f"{sum(res2['cg_per_iteration']) / max(n2, 1):.1f}"),
+          cg=",".join(map(str, res2["cg_per_iteration"])),
+          chi2=",".join(f"{c:.4f}" for c in chis2),
+          first_iteration_at_or_below=cross2, bound=f"{MANHATTAN_LM}",
+          **{f"launches_{k}": launches2[k] for k in KERNELS[:2]})
+    if cross2 is None or not all(math.isfinite(c) for c in chis2):
+        raise RuntimeError(f"manhattan GN polish: chi2 {chis2} never at or "
+                           f"below {MANHATTAN_LM}")
+    if min(launches2[k] for k in KERNELS[:2]) < 1:
+        raise RuntimeError(f"K1/K2 not launched in the polish: {launches2}")
+
+    # phase 3: the exact f64 phase from the original estimates
+    gn_bound = MANHATTAN_GN + 0.25
+    p64 = g.compile(dtype=torch.float64, device="cuda")
+    est64 = {t: v.clone() for t, v in p64.estimates.items()}
+    t0 = time.perf_counter()
+    host = g2o.HostCholSolver().setup(p64)
+    setup_s = time.perf_counter() - t0
+    g2o.optimize_gn_host(p64, host, 2)
+    p64.set_estimates({t: v.clone() for t, v in est64.items()})
+    res3 = g2o.optimize_gn_host(p64, host, 8)
+    exact = {t: v.clone() for t, v in p64.estimates.items()}
+    chis3 = res3["chi2_per_iteration"] + [res3["chi2_final"]]
+    cross3 = _first_at_or_below(chis3, gn_bound)
+    walls, hosts = res3["iter_walls"], res3["host_walls"]
+    n3 = res3["iterations"]
+
+    p64.set_estimates({t: v.clone() for t, v in est64.items()})
+    sn = g2o.SupernodalCholeskySolver()
+    g2o.optimize_fused_gn(p64, sn, 1)
+    p64.set_estimates({t: v.clone() for t, v in est64.items()})
+    before = _launches(wrappers)
+    res4 = g2o.optimize_fused_gn(p64, sn, 8)
+    sn_launches = {k: wrappers[k].launches - before[k] for k in KERNELS[:3]}
+    chis4 = res4["chi2_per_iteration"] + [res4["chi2_final"]]
+    cross4 = _first_at_or_below(chis4, gn_bound)
+    n4 = res4["iterations"]
+    phase("exact_manhattan", dim=host._N, l_nnz=host._hc.lnz,
+          setup_s=f"{setup_s:.3f}", iterations=n3,
+          ms_per_gn_iteration=f"{res3['wall_s'] * 1e3 / max(n3, 1):.3f}",
+          iter_ms=",".join(f"{w * 1e3:.2f}" for w in walls),
+          card_side_wall_ms=",".join(f"{(w - h) * 1e3:.2f}"
+                                     for w, h in zip(walls, hosts)),
+          host_wall_ms=",".join(f"{h * 1e3:.2f}" for h in hosts),
+          chi2=",".join(f"{c:.6f}" for c in chis3),
+          first_iteration_within_bound=cross3, bound=f"{gn_bound:.6f}",
+          ms_to_bound=(f"{sum(walls[:cross3]) * 1e3:.2f}"
+                       if cross3 is not None else None),
+          supernodal_iterations=n4,
+          supernodal_ms_per_gn_iteration=
+          f"{res4['wall_s'] * 1e3 / max(n4, 1):.3f}",
+          supernodal_chi2=",".join(f"{c:.6f}" for c in chis4),
+          supernodal_first_iteration_within_bound=cross4,
+          supernodal_launches=",".join(f"{k}:{v}"
+                                       for k, v in sn_launches.items()))
+    if cross3 is None or cross4 is None:
+        raise RuntimeError(f"manhattan exact phase: chi2 {chis3} (hybrid), "
+                           f"{chis4} (supernodal); need <= {gn_bound}")
+    trace_gn(p64, est64, lambda k: g2o.optimize_gn_host(p64, host, k),
+             "exact_manhattan", res3["wall_s"] * 1e3 / max(n3, 1), 4)
+    trace_gn(p64, est64, lambda k: g2o.optimize_fused_gn(p64, sn, k),
+             "exact_manhattan_supernodal",
+             res4["wall_s"] * 1e3 / max(n4, 1), 2)
+
+    # the exact result saved and reloaded
+    p64.set_estimates(exact)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "manhattan3500_opt.g2o")
+        g2o_format.save(g, path, estimates_by_vid=p64.estimates_by_vid())
+        g2 = g2o_format.load(path)
+    p2 = g2.compile(dtype=torch.float64, device="cuda")
+    chi_back = float(p2.chi2_fn(p2.data, p2.estimates)[0])
+    rel = abs(chi_back - res3["chi2_final"]) / res3["chi2_final"]
+    phase("save_reload_manhattan", chi2=f"{chi_back:.6f}",
+          rel_diff=f"{rel:.3e}", limit="1e-6")
+    if not rel <= 1e-6:
+        raise RuntimeError("the saved manhattan result does not reload to "
+                           "its chi2")
+    return {"manhattan": launches, "manhattan_polish": launches2}
 
 
 def coarse_matrix_check(torch, Hd):
@@ -1088,6 +1341,7 @@ def implicit_layer_times(torch, g2o, p, solver, lam, explicit=False):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     device_phase(torch)
     sys.path.insert(0, HERE)
     import g2o_tpu_torch as g2o
@@ -1115,6 +1369,7 @@ def main():
     by_path = main_path_phase(torch, g2o, wrappers)
     by_path.update(ba_main_path_phase(torch, g2o, wrappers, ba))
     by_path.update(implicit_main_path_phase(torch, g2o, wrappers, implicit))
+    by_path.update(manhattan_path_phase(torch, g2o, wrappers))
     # a new kernel's launches are its wrappers' launches
     for counts in by_path.values():
         for k, ws in NEW_KERNELS.items():
@@ -1148,6 +1403,7 @@ def main():
                     f"segment_sum_rows_mxu (K8); :274 segment_sum_t_mxu2 "
                     f"(K9)")}
 
+    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source[k],
          "replaces": replaces[k],

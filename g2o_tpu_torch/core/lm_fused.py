@@ -1,5 +1,5 @@
-"""Whole-run Levenberg-Marquardt with a carried linearization — port of
-``g2o_tpu/core/lm_fused.py``.
+"""Whole-run Levenberg-Marquardt and Gauss-Newton with a carried
+linearization — port of ``g2o_tpu/core/lm_fused.py``.
 
 The JAX package runs the whole optimization as one device program
 (``lax.while_loop``); here the loops are Python loops over device tensors,
@@ -14,7 +14,9 @@ reference LM's (``optimization_algorithm_levenberg.cpp:58-145``):
 
 A trial's chi2 comes from LINEARIZING the candidate; the accepted
 candidate's linearization is carried into the next iteration, so no
-residual pass is repeated.
+residual pass is repeated.  :func:`optimize_fused_gn` is the reference GN
+(``optimization_algorithm_gauss_newton.cpp:50``) in the same style: a
+solve at λ = 0 and the update, no trust region.
 """
 
 from __future__ import annotations
@@ -47,28 +49,33 @@ def _cap_cache(cache, limit: int = 8):
         cache.pop(next(iter(cache)))
 
 
+def _solve(p, solver, lin, lam, sstate):
+    """One solve ``(dx, sstate', cg_iterations)``: through the STATEFUL
+    protocol (``solver._solve_state_fn(data, lin, lam, state) -> (dx,
+    state', stats)``, e.g. the PCG residual floor) when the solver has it,
+    else ``solver._solve_fn(data, lin, lam, solver.aux)`` with the state
+    passed through and a CG count of 0."""
+    solve_state_fn = getattr(solver, "_solve_state_fn", None)
+    if solve_state_fn is None:
+        return solver._solve_fn(p.data, lin, lam, solver.aux), sstate, 0
+    dx, sstate, st = solve_state_fn(p.data, lin, lam, sstate)
+    return dx, sstate, int(st.get("cg_iterations", 0))
+
+
 def make_lm_iteration(problem, solver, max_trials: int):
     """The LM iteration ``(estimates, lam, ni, sstate, lin) -> (estimates',
-    chi0, chi_final, lam', ni', good, trials, sstate', cg_total, lin')``.
-
-    A solver with the STATEFUL protocol (``solver._solve_state_fn(data,
-    lin, lam, state) -> (dx, state', stats)``) threads ``sstate`` — e.g. the
-    PCG residual floor — through every trial.  Any other solver is called
-    as ``solver._solve_fn(data, lin, lam, solver.aux)``, its state passes
-    through unused and its CG count is 0."""
+    chi0, chi_final, lam', ni', good, trials, sstate', cg_total, lin')``;
+    :func:`_solve` threads the solver state ``sstate`` through every
+    trial."""
     p = problem
-    solve_state_fn = getattr(solver, "_solve_state_fn", None)
 
     def one_iteration(estimates, lam, ni, sstate, lin):
         chi0 = float(lin.chi2_robust)
         good, trials, cg = False, 0, 0
         est_out, chi_out, lin_out = estimates, chi0, lin
         while not good and trials < max_trials:
-            if solve_state_fn is not None:
-                dx, sstate, st = solve_state_fn(p.data, lin, lam, sstate)
-                cg += int(st.get("cg_iterations", 0))
-            else:
-                dx = solver._solve_fn(p.data, lin, lam, solver.aux)
+            dx, sstate, n_cg = _solve(p, solver, lin, lam, sstate)
+            cg += n_cg
             cand = p.apply_update_fn(p.data, estimates, dx)
             lin_cand = p.linearize_fn(p.data, cand)
             chi_new = float(lin_cand.chi2_robust)
@@ -136,4 +143,45 @@ def optimize_fused(problem, solver, max_iterations: int, *,
         "cg_per_iteration": cg_hist,
         "chi2_final": chi_f,
         "lambda_final": lam,
+    }
+
+
+def optimize_fused_gn(problem, solver, max_iterations: int):
+    """Run a whole Gauss-Newton optimization: linearize → solve at λ = 0 →
+    oplus.  The chi2 of a step comes with the next linearization; a
+    non-finite chi2 keeps the previous estimate and linearization and
+    stops.  A stateful solver (the PCG residual floor) threads its state
+    across iterations.  Mutates ``problem.estimates``; returns the JAX
+    package's keys."""
+    solver.setup(problem)
+    p = problem
+    sstate = getattr(solver, "state0", None)
+    cuda = p.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(p.device)
+    t0 = time.perf_counter()
+    est = p.estimates
+    lin = p.linearize_fn(p.data, est)
+    chi = float(lin.chi2_robust)
+    chi_hist, cg_hist = [], []
+    for _ in range(max_iterations):
+        dx, sstate, n_cg = _solve(p, solver, lin, 0.0, sstate)
+        cg_hist.append(n_cg)
+        chi_hist.append(chi)
+        new = p.apply_update_fn(p.data, est, dx)
+        lin_new = p.linearize_fn(p.data, new)
+        chi_new = float(lin_new.chi2_robust)
+        if not math.isfinite(chi_new):
+            break
+        est, lin, chi = new, lin_new, chi_new
+    if cuda:
+        torch.cuda.synchronize(p.device)
+    wall = time.perf_counter() - t0
+    p.set_estimates(est)
+    return {
+        "iterations": len(chi_hist),
+        "wall_s": wall,
+        "chi2_per_iteration": chi_hist,
+        "cg_per_iteration": cg_hist,
+        "chi2_final": chi,
     }

@@ -1,5 +1,9 @@
-"""The optimizer front end and the host-loop Levenberg-Marquardt — port of
-``g2o_tpu/core/optimizer.py`` (GN and Dogleg are not ported yet).
+"""The optimizer front end, host-loop Gauss-Newton and Levenberg-Marquardt
+— port of ``g2o_tpu/core/optimizer.py`` (Dogleg is not ported yet).
+
+:class:`GaussNewton` is the reference's
+(``g2o/core/optimization_algorithm_gauss_newton.cpp:50``): solve at λ = 0,
+apply, and stop on a non-finite chi2.
 
 :class:`LevenbergMarquardt` keeps the reference trust-region bookkeeping
 (``g2o/core/optimization_algorithm_levenberg.cpp:58``): ``λ₀ = τ·max|H_jj|``
@@ -65,6 +69,29 @@ class OptimizationAlgorithm:
 
     def print_verbose_suffix(self) -> str:
         return ""
+
+
+class GaussNewton(OptimizationAlgorithm):
+    def step(self, optimizer, iteration, stats):
+        p = optimizer.problem
+        t0 = time.perf_counter()
+        lin = p.linearize_fn(p.data, p.estimates)
+        stats.chi2 = float(lin.chi2_robust)
+        stats.time_linearize = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dx = optimizer.solver.solve(p.data, lin, 0.0)
+        stats.time_linear_solver = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        new_est = p.apply_update_fn(p.data, p.estimates, dx)
+        chi2_new = float(p.chi2_fn(p.data, new_est)[0])
+        stats.time_update = time.perf_counter() - t0
+        if not math.isfinite(chi2_new):
+            return False
+        p.set_estimates(new_est)
+        optimizer.current_chi2 = chi2_new
+        return True
 
 
 class LevenbergMarquardt(OptimizationAlgorithm):

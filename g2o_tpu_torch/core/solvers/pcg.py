@@ -18,7 +18,16 @@ Preconditioners:
   ``L⁻ᵀL⁻¹`` with the batched Cholesky and forward-substitution kernels
   (K1, K2) once per λ-trial.
 
-Only ``precond_mode="per_solve"`` is ported so far.
+When the preconditioner is built (``precond_mode``):
+
+* ``"per_solve"`` — once per solve (λ-trial);
+* ``"every_k"`` — on every ``precond_refresh_every``-th solve, counting
+  every λ-trial, rejected ones included, and the first solve; the solver
+  state ``{"carry", "k", "minv"}`` threads the count and the last
+  preconditioner through the LM loops (``k`` is a host int, so the gate
+  reads nothing from the device);
+* ``"frozen"`` — built by :meth:`PCGSolver.refresh_precond` from the
+  problem's current linearization, then reused by every solve.
 """
 
 from __future__ import annotations
@@ -40,13 +49,11 @@ class PCGSolver:
                  precond: str = "jacobi", chunk_size: int = 32,
                  absolute_tolerance: bool = True, carry_factor: float = 0.5,
                  matvec_precision: str = "default",
-                 precond_mode: str = "per_solve"):
+                 precond_mode: str = "per_solve",
+                 precond_refresh_every: int = 8):
         if precond not in ("jacobi", "chunk", "chunk2"):
             raise ValueError(f"unknown precond {precond!r}")
-        if precond_mode in ("frozen", "every_k"):
-            raise NotImplementedError(
-                f"precond_mode={precond_mode!r} is not ported yet")
-        if precond_mode != "per_solve":
+        if precond_mode not in ("per_solve", "frozen", "every_k"):
             raise ValueError(f"unknown precond_mode {precond_mode!r}")
         # accepted for API parity: TF32 is off package-wide, so the CG
         # matvec runs in full precision either way
@@ -57,6 +64,7 @@ class PCGSolver:
         self.precond = precond
         self.chunk_size = int(chunk_size)
         self.precond_mode = precond_mode
+        self.precond_refresh_every = int(precond_refresh_every)
         self.matvec_precision = matvec_precision
         # reference-PCG absoluteTolerance continuation: each solve's stop
         # threshold is floored by carry_factor x the previous solve's final
@@ -65,6 +73,7 @@ class PCGSolver:
         self.carry_factor = float(carry_factor)
         self.state0 = None
         self._host_state = None
+        self._frozen_minv = None
         self._setup_for = None
 
     # ------------------------------------------------------------------ #
@@ -80,11 +89,37 @@ class PCGSolver:
         self.problem = problem
         self._chunk = (self._chunk_setup(problem)
                        if self.precond in ("chunk", "chunk2") else None)
-        self.state0 = (torch.tensor(-1.0, dtype=problem.dtype,
-                                    device=problem.device)
-                       if self.absolute_tolerance else None)
+        carry0 = torch.tensor(-1.0, dtype=problem.dtype,
+                              device=problem.device)
+        self.state0 = carry0 if self.absolute_tolerance else None
+        if self.precond_mode == "every_k":
+            # a preconditioner of the right structure at λ = 0; the first
+            # solve (k = 0) rebuilds it
+            lin0 = problem.linearize_fn(problem.data, problem.estimates)
+            self.state0 = {"carry": carry0, "k": 0,
+                           "minv": self.build_precond(problem.data, lin0,
+                                                      0.0)}
         self._host_state = None
+        self._frozen_minv = None
+        if self.precond_mode == "frozen":
+            self.refresh_precond(problem)
         self._setup_for = problem
+        return self
+
+    def refresh_precond(self, problem=None, lam: float | None = None):
+        """Rebuild the frozen preconditioner from the problem's CURRENT
+        linearization (``precond_mode="frozen"`` only), at ``lam`` or at
+        ``1e-5·max|H_jj|``; every solve until the next refresh reuses it."""
+        if self.precond_mode != "frozen":
+            raise RuntimeError("refresh_precond requires precond_mode="
+                               "'frozen'")
+        from g2o_tpu_torch.core.optimizer import _max_abs_diag
+
+        p = problem if problem is not None else self.problem
+        lin = p.linearize_fn(p.data, p.estimates)
+        if lam is None:
+            lam = float(1e-5 * _max_abs_diag(p, lin))
+        self._frozen_minv = self.build_precond(p.data, lin, lam)
         return self
 
     def _chunk_setup(self, p):
@@ -354,22 +389,32 @@ class PCGSolver:
         return p.join_tangent(x), stats
 
     def _solve_fn(self, data, lin, lam, carry=None):
-        """One solve with a fresh preconditioner: ``(dx, stats)``."""
-        minv = self.build_precond(data, lin, lam)
+        """One solve with a fresh (or the frozen) preconditioner:
+        ``(dx, stats)``."""
+        minv = (self._frozen_minv if self.precond_mode == "frozen"
+                else self.build_precond(data, lin, lam))
         return self.cg(data, lin, lam, minv, carry)
 
     def _solve_state_fn(self, data, lin, lam, state):
         """The stateful protocol of the LM loops:
-        ``(dx, state', stats)``; the state is the carried residual floor
-        when ``absolute_tolerance`` is on, else passed through."""
+        ``(dx, state', stats)``.  The state is ``{"carry", "k", "minv"}``
+        with ``every_k``, else the carried residual floor when
+        ``absolute_tolerance`` is on, else passed through."""
+        if self.precond_mode == "every_k":
+            k, minv = state["k"], state["minv"]
+            if k % self.precond_refresh_every == 0:
+                minv = self.build_precond(data, lin, lam)
+            dx, st = self.cg(data, lin, lam, minv, state["carry"]
+                             if self.absolute_tolerance else None)
+            return dx, {"carry": st["carry"], "k": k + 1, "minv": minv}, st
         carry = state if self.absolute_tolerance else None
         dx, st = self._solve_fn(data, lin, lam, carry)
         return dx, (st["carry"] if self.absolute_tolerance else state), st
 
     def solve(self, data, lin, lam=0.0):
-        """One solve; carries the residual floor across calls when
-        ``absolute_tolerance`` is on."""
-        if self.absolute_tolerance:
+        """One solve; carries the solver state (the residual floor, the
+        ``every_k`` count) across calls."""
+        if self.absolute_tolerance or self.precond_mode == "every_k":
             if self._host_state is None:
                 self._host_state = self.state0
             dx, self._host_state, _ = self._solve_state_fn(

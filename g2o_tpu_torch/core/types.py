@@ -54,6 +54,9 @@ class EdgeType:
       num_params: how many parameter ids the edge references (their
         values are concatenated into ``param``).
       tags: accepted ``.g2o`` tags when loading.
+      dynamic_tag: the variable-arity ``.g2o`` tag of an edge type made
+        per arity by a factory, written as ``TAG id... || count meas
+        info`` (reference ``core/optimizable_graph.cpp:575-590``).
     """
 
     name: str
@@ -64,6 +67,7 @@ class EdgeType:
     param_dim: int = 0
     num_params: int = 1
     tags: Sequence[str] = ()
+    dynamic_tag: Optional[str] = None
 
     @property
     def num_slots(self) -> int:
@@ -82,6 +86,7 @@ class TypeRegistry:
         self.edge_types: dict[str, EdgeType] = {}
         self._vertex_by_tag: dict[str, VertexType] = {}
         self._edge_by_tag: dict[str, EdgeType] = {}
+        self._dynamic_edge_by_tag: dict[str, Callable] = {}
 
     def register_vertex(self, vt: VertexType) -> VertexType:
         self.vertex_types[vt.name] = vt
@@ -100,6 +105,14 @@ class TypeRegistry:
 
     def edge_for_tag(self, tag: str) -> Optional[EdgeType]:
         return self._edge_by_tag.get(tag)
+
+    def register_dynamic_edge(self, tag: str, factory: Callable) -> None:
+        """``factory(k) -> EdgeType`` makes the arity-``k`` type of a
+        variable-arity tag."""
+        self._dynamic_edge_by_tag[tag] = factory
+
+    def dynamic_edge_for_tag(self, tag: str) -> Optional[Callable]:
+        return self._dynamic_edge_by_tag.get(tag)
 
 
 # the global registry (type libraries register into it at import time)

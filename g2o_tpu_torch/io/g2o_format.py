@@ -6,6 +6,8 @@
 * ``<EDGE_TAG> id... [param_id...] <meas floats> <upper-triangular info>``
 * ``FIX id...`` — pin vertices (gauge)
 * ``PARAMS_* id <floats>`` — shared parameter blocks
+* ``<DYNAMIC_TAG> id... || count <meas floats> <info>`` — a
+  variable-arity edge (``EDGE_SE2_LOTSOFXY``)
 
 The information matrix is the row-major upper triangle (the EDGE3 6x6
 case: 21 numbers).  Every malformed line raises a ``ValueError`` that
@@ -73,6 +75,10 @@ def _parse_line(g, registry, parts, lineno, fix_ids):
         g.add_vertex(int(parts[1]), vt,
                      _floats(parts[2:], vt.rep_dim, f"{tag} state"))
         return
+    dyn = registry.dynamic_edge_for_tag(tag)
+    if dyn is not None:
+        _parse_dynamic_edge(g, dyn, tag, parts)
+        return
     et = registry.edge_for_tag(tag)
     if et is None:
         raise ValueError(f"unknown tag {tag!r}")
@@ -94,6 +100,27 @@ def _parse_line(g, registry, parts, lineno, fix_ids):
     info = upper_triangular_to_full(
         _floats(parts[pos:], ninfo, f"{tag} information"), r)
     g.add_edge(et, vids, meas, info, param_id=param_id)
+
+
+def _parse_dynamic_edge(g, factory, tag, parts):
+    """``TAG id... || count meas info`` (reference
+    ``optimizable_graph.cpp:575-590``): the arity-``count`` type."""
+    if "||" not in parts:
+        raise ValueError(f"{tag} missing '||' separator")
+    sep = parts.index("||")
+    vids = [int(p) for p in parts[1:sep]]
+    count = int(parts[sep + 1])
+    if count != len(vids) - 1:
+        raise ValueError(f"{tag} count {count} != {len(vids) - 1} observed "
+                         f"vertices")
+    et = factory(count)
+    pos = sep + 2
+    meas = _floats(parts[pos:], et.meas_dim, f"{tag} measurement")
+    pos += et.meas_dim
+    r = et.residual_dim
+    info = upper_triangular_to_full(
+        _floats(parts[pos:], r * (r + 1) // 2, f"{tag} information"), r)
+    g.add_edge(et, vids, meas, info)
 
 
 def loads(text: str, **kw) -> Graph:
@@ -122,6 +149,12 @@ def save(g: Graph, path_or_file, estimates_by_vid=None):
             if rec.fixed:
                 fh.write(f"FIX {vid}\n")
         for e in g.edges():
+            if e.etype.dynamic_tag:
+                fh.write(" ".join([
+                    e.etype.dynamic_tag, " ".join(str(v) for v in e.vids),
+                    "||", str(len(e.vids) - 1), _fmt(e.measurement),
+                    _fmt(full_to_upper_triangular(e.information))]) + "\n")
+                continue
             parts = [e.etype.io_tags[0], " ".join(str(v) for v in e.vids)]
             if e.etype.param_dim:
                 parts.append(" ".join(str(p) for p in e.param_id))

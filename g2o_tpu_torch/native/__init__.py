@@ -1,22 +1,28 @@
-"""Host-side native code — the symbolic block-Cholesky analysis.
+"""Host-side native code: the symbolic block-Cholesky analysis and the
+host sparse Cholesky.
 
-``symbolic_analysis`` runs ``symchol.cpp`` (fill-reducing nested-dissection
-ordering, elimination tree, exact column structure and etree depths; the
-analogue of CSparse's ``cs_etree``/``cs_ereach``), compiled on its own with
-``g++`` at first use into ``g2o_tpu_torch/_build/``.  The source in this
-directory is a byte-identical copy of the JAX package's
-``g2o_tpu/native/symchol.cpp`` (a CPU test holds the two equal): the same
-source keeps the ordering, and with it every supernodal schedule, identical
-to the JAX package's.
+* ``symbolic_analysis`` runs ``symchol.cpp`` (fill-reducing
+  nested-dissection ordering, elimination tree, exact column structure
+  and etree depths; the analogue of CSparse's ``cs_etree``/``cs_ereach``).
+  When no compiler is found (or the build fails) it returns ``None`` and
+  the caller takes its pure-Python path, as the JAX package does.
+* :class:`HostCholesky` runs ``hostchol.cpp``, the scalar up-looking
+  sparse Cholesky of the hybrid direct solver's numeric phase
+  (``core/solvers/host_chol.py``).  It has no fallback: without its
+  library it raises.
 
-When no compiler is found (or the build fails) ``symbolic_analysis``
-returns ``None`` and the caller takes its pure-Python path, as the JAX
-package does.  This is host code, not a device kernel.
+Each source is compiled on its own with ``g++`` at first use into
+``g2o_tpu_torch/_build/``.  Both are byte-identical copies of the JAX
+package's ``g2o_tpu/native/symchol.cpp`` and ``hostchol.cpp`` (CPU tests
+hold them equal): the same source keeps the ordering, and with it every
+supernodal schedule and host factor, identical to the JAX package's.  This
+is host code, not a device kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,43 +33,41 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "native", "symchol.cpp")
+HOSTCHOL_SOURCE = os.path.join(_PKG, "native", "hostchol.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
-_LIB = None
-_TRIED = False
 
-
-def _build_lib() -> str | None:
+def _build_lib(source: str) -> str | None:
+    """Compile ``source`` into ``_build/lib<stem>_<hash>.so``; the path, or
+    ``None`` when there is no compiler or the build fails."""
     gxx = shutil.which("g++")
-    if gxx is None or not os.path.exists(SOURCE):
+    if gxx is None or not os.path.exists(source):
         return None
-    with open(SOURCE, "rb") as fh:
+    with open(source, "rb") as fh:
         src = fh.read()
     tag = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libsymchol_{tag}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        subprocess.run([gxx, *GXX_FLAGS, SOURCE, "-o", tmp], check=True,
+        subprocess.run([gxx, *GXX_FLAGS, source, "-o", tmp], check=True,
                        capture_output=True, timeout=120)
         os.replace(tmp, out)
         return out
     except (OSError, subprocess.SubprocessError) as e:
-        print(f"g2o_tpu_torch.native: build failed ({e}); using the "
-              f"pure-Python symbolic analysis", file=sys.stderr)
+        print(f"g2o_tpu_torch.native: build of {stem} failed ({e})",
+              file=sys.stderr)
         return None
 
 
+@functools.cache
 def get_lib():
     """The symbolic-analysis library, or ``None`` when it cannot be built."""
-    global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    path = _build_lib()
+    path = _build_lib(SOURCE)
     if path is None:
         return None
     lib = ctypes.CDLL(path)
@@ -84,7 +88,6 @@ def get_lib():
                                    ctypes.POINTER(ctypes.c_int64)]
     lib.g2o_sym_release.restype = None
     lib.g2o_sym_release.argtypes = [ctypes.c_void_p]
-    _LIB = lib
     return lib
 
 
@@ -122,3 +125,68 @@ def symbolic_analysis(n: int, pairs, min_size: int = 32):
                 "nlevels": int(lib.g2o_sym_nlevels(h))}
     finally:
         lib.g2o_sym_release(h)
+
+
+@functools.cache
+def get_hostchol_lib():
+    """The host sparse-Cholesky library, or ``None`` when it cannot be
+    built."""
+    path = _build_lib(HOSTCHOL_SOURCE)
+    if path is None:
+        return None
+    lib = ctypes.CDLL(path)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.g2o_hostchol_sym.restype = ctypes.c_void_p
+    lib.g2o_hostchol_sym.argtypes = [ctypes.c_int32,
+                                     ctypes.POINTER(ctypes.c_int64), i32p]
+    lib.g2o_hostchol_lnz.restype = ctypes.c_int64
+    lib.g2o_hostchol_lnz.argtypes = [ctypes.c_void_p]
+    lib.g2o_hostchol_factor.restype = ctypes.c_int32
+    lib.g2o_hostchol_factor.argtypes = [ctypes.c_void_p, f64p]
+    lib.g2o_hostchol_solve.restype = None
+    lib.g2o_hostchol_solve.argtypes = [ctypes.c_void_p, f64p]
+    lib.g2o_hostchol_release.restype = None
+    lib.g2o_hostchol_release.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+class HostCholesky:
+    """Reusable host sparse-Cholesky handle over a fixed upper-CSC pattern
+    (``hostchol.cpp``): the symbolic structure is computed once, then
+    ``factor(Ax)`` + ``solve(b)`` per system.  Raises when the library
+    cannot be built (no fallback for the numeric phase)."""
+
+    def __init__(self, n: int, Ap, Ai):
+        lib = get_hostchol_lib()
+        if lib is None:
+            raise RuntimeError("native host-Cholesky library unavailable")
+        self._lib = lib
+        self.n = int(n)
+        self._Ap = np.ascontiguousarray(Ap, dtype=np.int64)
+        self._Ai = np.ascontiguousarray(Ai, dtype=np.int32)
+        self._h = lib.g2o_hostchol_sym(
+            self.n, self._Ap.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            self._Ai.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if not self._h:
+            raise RuntimeError("hostchol symbolic phase failed")
+        self.lnz = int(lib.g2o_hostchol_lnz(self._h))
+
+    def factor(self, Ax) -> int:
+        """0 on success, -(i+1) when not PD at scalar column i."""
+        Ax = np.ascontiguousarray(Ax, dtype=np.float64)
+        return int(self._lib.g2o_hostchol_factor(
+            self._h, Ax.ctypes.data_as(ctypes.POINTER(ctypes.c_double))))
+
+    def solve(self, b):
+        """``x`` with ``L Lᵀ x = b`` (a new array)."""
+        out = np.array(b, dtype=np.float64, copy=True)
+        self._lib.g2o_hostchol_solve(
+            self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        return out
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.g2o_hostchol_release(h)
+            self._h = None

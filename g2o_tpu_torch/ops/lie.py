@@ -1,10 +1,15 @@
-"""SO(3)/SE(3) primitives on tensors — port of ``g2o_tpu/ops/lie.py``.
+"""SE(2) and SO(3)/SE(3) primitives on tensors — port of
+``g2o_tpu/ops/lie.py``.
 
 Every function works on the *last* axis, so it applies unchanged to a
 single pose ``(7,)`` or to a batch ``(E, 7)``, and it is traceable by
 ``torch.func`` (no in-place writes).  Conventions match the JAX package
 and the reference framework:
 
+* SE2 state is ``(x, y, theta)``; composition is the planar rigid-body
+  rule and every angle is wrapped to ``[-pi, pi)`` by the floor form of
+  :func:`normalize_angle` (its ``floor`` has a zero derivative, so the
+  wrap stays out of the Jacobians).
 * SE3 state is ``(tx, ty, tz, qx, qy, qz, qw)``: translation, then a unit
   quaternion in Eigen coefficient order (x, y, z, w).
 * The 6-dof error/update vector is the "MQT" parameterisation
@@ -21,7 +26,55 @@ exactly at zero perturbation, so every such argument is where-guarded.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+_PI = math.pi
+
+
+# --------------------------------------------------------------------------- #
+# scalars / SO(2)
+# --------------------------------------------------------------------------- #
+
+def normalize_angle(theta):
+    """Wrap angle(s) to [-pi, pi)."""
+    return theta - 2.0 * _PI * torch.floor((theta + _PI) / (2.0 * _PI))
+
+
+# --------------------------------------------------------------------------- #
+# SE(2) — state vector (x, y, theta)
+# --------------------------------------------------------------------------- #
+
+def se2_compose(a, b):
+    """a * b for SE2 vectors (..., 3)."""
+    xa, ya, ta = a[..., 0], a[..., 1], a[..., 2]
+    xb, yb, tb = b[..., 0], b[..., 1], b[..., 2]
+    c, s = torch.cos(ta), torch.sin(ta)
+    return torch.stack([xa + c * xb - s * yb, ya + s * xb + c * yb,
+                        normalize_angle(ta + tb)], dim=-1)
+
+
+def se2_inverse(a):
+    x, y, t = a[..., 0], a[..., 1], a[..., 2]
+    c, s = torch.cos(t), torch.sin(t)
+    return torch.stack([-(c * x + s * y), -(-s * x + c * y),
+                        normalize_angle(-t)], dim=-1)
+
+
+def se2_act(a, p):
+    """Apply SE2 transform a (..., 3) to 2D point p (..., 2)."""
+    x, y, t = a[..., 0], a[..., 1], a[..., 2]
+    c, s = torch.cos(t), torch.sin(t)
+    px, py = p[..., 0], p[..., 1]
+    return torch.stack([x + c * px - s * py, y + s * px + c * py], dim=-1)
+
+
+def se2_oplus(x, delta):
+    """Reference VertexSE2 update: additive with angle renormalisation
+    (``g2o/types/slam2d/vertex_se2.h:51-58``)."""
+    return torch.stack([x[..., 0] + delta[..., 0], x[..., 1] + delta[..., 1],
+                        normalize_angle(x[..., 2] + delta[..., 2])], dim=-1)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,5 +1,7 @@
-"""Synthetic sphere pose graph — port of
-``g2o_tpu/sim/generators.py::create_sphere`` (the reference generator is
+"""Synthetic pose graphs — port of ``create_sphere`` and
+``create_manhattan`` of ``g2o_tpu/sim/generators.py``.
+
+``create_sphere`` (the reference generator is
 ``g2o/examples/sphere/create_sphere.cpp:40-231``): poses on a sphere,
 odometry edges between consecutive poses, loop closures between laps,
 Gaussian noise on the measurements (compact-quaternion rotation noise),
@@ -7,6 +9,11 @@ initial estimates chained from the noisy odometry.
 
 Noise comes from a ``torch.Generator``; with zero noise the graph equals
 the JAX package's.
+
+``create_manhattan``: a 2D grid walk with 90-degree turns, odometry edges,
+loop closures between revisits, noisy measurements and chained initial
+estimates; it draws from ``np.random.default_rng(seed)`` in the JAX
+package's order, so its graph is the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -134,4 +141,78 @@ def create_sphere(nodes_per_level: int = 50, laps: int = 50,
         g.add_vertex(i, VertexSE3, est[i], fixed=(i == 0))
     for (i, j), m in zip(pairs, measurements):
         g.add_edge(EdgeSE3, [i, j], m, info)
+    return g
+
+
+def create_manhattan(n_poses: int = 3500, step: float = 1.0,
+                     trans_noise=(0.05, 0.05), rot_noise=0.02,
+                     loop_radius: float = 1.5, max_loops_per_pose: int = 2,
+                     seed: int = 0) -> Graph:
+    from g2o_tpu_torch.types.slam2d import EdgeSE2, VertexSE2
+
+    rng = np.random.default_rng(seed)
+
+    def se2_mul(a, b):
+        c, s = np.cos(a[2]), np.sin(a[2])
+        th = a[2] + b[2]
+        th = (th + np.pi) % (2 * np.pi) - np.pi
+        return np.array([a[0] + c * b[0] - s * b[1],
+                         a[1] + s * b[0] + c * b[1], th])
+
+    def se2_inv(a):
+        c, s = np.cos(a[2]), np.sin(a[2])
+        return np.array([-(c * a[0] + s * a[1]), s * a[0] - c * a[1], -a[2]])
+
+    # ground-truth random grid walk with 90-degree turns
+    gt = [np.zeros(3)]
+    heading = 0
+    for _ in range(1, n_poses):
+        r = rng.random()
+        turn = 0 if r < 0.6 else 1 if r < 0.8 else -1
+        heading = (heading + turn) % 4
+        prev = gt[-1]
+        th = heading * np.pi / 2
+        gt.append(np.array([prev[0] + step * np.cos(th),
+                            prev[1] + step * np.sin(th), th]))
+
+    info = np.diag([1.0 / trans_noise[0] ** 2, 1.0 / trans_noise[1] ** 2,
+                    1.0 / rot_noise ** 2])
+
+    pairs = [(i - 1, i) for i in range(1, n_poses)]
+    # loop closures: revisits within loop_radius (grid hashing for O(n))
+    cell = {}
+    for i, p in enumerate(gt):
+        key = (int(np.floor(p[0] / loop_radius)),
+               int(np.floor(p[1] / loop_radius)))
+        cell.setdefault(key, []).append(i)
+    for i, p in enumerate(gt):
+        found = 0
+        kx = int(np.floor(p[0] / loop_radius))
+        ky = int(np.floor(p[1] / loop_radius))
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for j in cell.get((kx + dx, ky + dy), ()):
+                    if j < i - 10 and found < max_loops_per_pose and \
+                            np.linalg.norm(gt[i][:2] - gt[j][:2]) < \
+                            loop_radius:
+                        pairs.append((j, i))
+                        found += 1
+
+    measurements = []
+    for (i, j) in pairs:
+        t = se2_mul(se2_inv(gt[i]), gt[j])
+        noise = np.array([rng.normal(scale=trans_noise[0]),
+                          rng.normal(scale=trans_noise[1]),
+                          rng.normal(scale=rot_noise)])
+        measurements.append(se2_mul(t, noise))
+
+    est = [gt[0]]
+    for i in range(1, n_poses):
+        est.append(se2_mul(est[i - 1], measurements[i - 1]))
+
+    g = Graph()
+    for i in range(n_poses):
+        g.add_vertex(i, VertexSE2, est[i], fixed=(i == 0))
+    for (i, j), m in zip(pairs, measurements):
+        g.add_edge(EdgeSE2, [i, j], m, info)
     return g

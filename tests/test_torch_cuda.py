@@ -1,7 +1,8 @@
 """The port on a CUDA card: the K1/K2/K3/K4 kernels and the gather and
 segment-sum kernels (K5–K10) against their plain PyTorch versions, and the
-PCG, supernodal, explicit and implicit Schur (BAL) paths on the card
-against the same paths on the CPU.
+PCG (per-solve and, on a manhattan graph, ``every_k``), supernodal, host
+Cholesky, explicit and implicit Schur (BAL) paths on the card against the
+same paths on the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
 This file imports neither JAX nor ``g2o_tpu``, so it also runs on a machine
@@ -26,7 +27,7 @@ import torch
 import g2o_tpu_torch
 from g2o_tpu_torch.io import bal
 from g2o_tpu_torch.ops import chol_kernels, onehot, segment_kernels
-from g2o_tpu_torch.sim.generators import create_sphere
+from g2o_tpu_torch.sim.generators import create_manhattan, create_sphere
 
 C20 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "data", "bal_cache", "bal-C20-P800-K5-N1-S0.txt.gz")
@@ -73,6 +74,57 @@ def test_kernel_matches_plain_on_card(S, n, m, dtype, tol):
     assert (Y - Yp).abs().max() <= tol * Yp.abs().max()
     assert (X - Xp).abs().max() <= tol * Xp.abs().max()
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+
+
+def _ill_conditioned_spd(rng, n, cond=1e9):
+    """A manhattan-like SPD matrix: the weighted Laplacian of a chain with
+    random loop closures (diagonally dominant, as the chunk2 coarse level
+    of a pose graph) plus a shift that sets the condition number near
+    ``cond``, under a random diagonal scaling."""
+    w = rng.uniform(0.5, 2.0, n - 1)
+    Lap = np.zeros((n, n))
+    i = np.arange(n - 1)
+    Lap[i, i + 1] = Lap[i + 1, i] = -w
+    for a, b in rng.integers(0, n, (n // 2, 2)):
+        if abs(a - b) > 1:
+            c = rng.uniform(0.1, 1.0)
+            Lap[a, b] -= c
+            Lap[b, a] -= c
+    Lap[np.arange(n), np.arange(n)] = -Lap.sum(axis=1)
+    lam_max = np.linalg.eigvalsh(Lap)[-1]
+    d = np.exp(rng.uniform(-1.0, 1.0, n))
+    return d[:, None] * (Lap + lam_max / cond * np.eye(n)) * d[None, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_and_inverse_at_manhattan_coarse_shape_on_card(dtype):
+    """K1 and K2 (B = I) at the manhattan3500 chunk2 coarse shape (1, 672,
+    672), whose last 64-wide tile is ragged (672 = 10.5 tiles), on a
+    matrix with a condition number near 1e9: ``max|LLᵀ − D| / max|D|`` and
+    ``max|L·Y − I|`` (products in float64) within 10× the plain versions'."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    n = 672
+    D64 = torch.as_tensor(_ill_conditioned_spd(rng, n), device="cuda")
+    assert float(torch.linalg.cond(D64)) > 1e8
+    D = D64.to(dtype)[None].contiguous()
+    eye = torch.eye(n, dtype=dtype, device="cuda")[None].contiguous()
+    I64 = torch.eye(n, dtype=torch.float64, device="cuda")
+    res = {}
+    for route, chol, solve in (
+            ("kernel", chol_kernels.chol_batched,
+             chol_kernels.solve_lower_batched),
+            ("plain", chol_kernels.chol_batched_plain,
+             chol_kernels.solve_lower_batched_plain)):
+        L = chol(D).contiguous()
+        Y = solve(L, eye)
+        L64, Y64, Dd = L[0].double(), Y[0].double(), D[0].double()
+        res[route] = (float((L64 @ L64.T - Dd).abs().max() / Dd.abs().max()),
+                      float((L64 @ Y64 - I64).abs().max()))
+    for got, ref in zip(res["kernel"], res["plain"]):
+        assert np.isfinite(ref) and np.isfinite(got)
+        assert got <= 10 * ref
 
 
 @pytest.mark.cuda
@@ -191,6 +243,49 @@ def test_slice_on_card_matches_cpu():
             assert chol_kernels.chol_batched.launches > before
         chis.append(res["chi2_per_iteration"])
     np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_manhattan_every_k_on_card_matches_cpu():
+    """chunk2 with ``every_k`` (K = 8) on a 600-pose manhattan, float64:
+    the coarse level (38 chunks of 16 → 114 columns, padded to 192) goes
+    through K1/K2 on the card; the same trajectory as on the CPU."""
+    _need_card()
+    chis = []
+    for device in ("cpu", "cuda"):
+        p = create_manhattan(n_poses=600, seed=0).compile(
+            dtype=torch.float64, device=device)
+        before = chol_kernels.chol_batched.launches
+        res = g2o_tpu_torch.optimize_fused(p, g2o_tpu_torch.PCGSolver(
+            max_iter=200, tol=1e-10, precond="chunk2", chunk_size=16,
+            precond_mode="every_k", absolute_tolerance=False), 10)
+        if device == "cuda":
+            assert chol_kernels.chol_batched.launches > before
+        chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
+    np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_host_chol_on_card_matches_cpu():
+    """``HostCholSolver`` with the linearization and blocks on the card:
+    one step's dx and a 5-iteration ``optimize_gn_host`` run equal the
+    same problem's on the CPU (float64)."""
+    _need_card()
+    out = []
+    for device in ("cpu", "cuda"):
+        p = create_manhattan(n_poses=300, seed=0).compile(
+            dtype=torch.float64, device=device)
+        hs = g2o_tpu_torch.HostCholSolver().setup(p)
+        lin = p.linearize_fn(p.data, p.estimates)
+        dx = hs.solve(p.data, lin, 1e-3)
+        assert dx.device.type == device
+        res = g2o_tpu_torch.optimize_gn_host(p, hs, 5)
+        out.append((dx.cpu().numpy(),
+                    res["chi2_per_iteration"] + [res["chi2_final"]]))
+    (dx_c, chi_c), (dx_g, chi_g) = out
+    np.testing.assert_allclose(dx_g, dx_c, rtol=1e-9,
+                               atol=1e-9 * np.abs(dx_c).max())
+    np.testing.assert_allclose(chi_g, chi_c, rtol=1e-9)
 
 
 @pytest.mark.cuda

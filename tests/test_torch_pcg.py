@@ -80,9 +80,3 @@ def test_carried_residual_state_matches(pair):
         np.testing.assert_allclose(float(tstate), float(jstate), rtol=1e-6)
         np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), rtol=1e-6,
                                    atol=1e-6 * np.abs(np.asarray(jdx)).max())
-
-
-@pytest.mark.parametrize("mode", ["frozen", "every_k"])
-def test_unported_precond_modes_raise(mode):
-    with pytest.raises(NotImplementedError):
-        TPCG(precond="chunk2", precond_mode=mode)

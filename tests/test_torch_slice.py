@@ -201,7 +201,11 @@ def test_port_imports_neither_jax_nor_g2o_tpu():
             "g2o_tpu_torch.ops.segment_kernels, g2o_tpu_torch.native, "
             "g2o_tpu_torch.core.solvers.schur, g2o_tpu_torch.ops.onehot, "
             "g2o_tpu_torch.ops.bucketed, "
-            "g2o_tpu_torch.core.solvers.schur_implicit, chip_smoke")
+            "g2o_tpu_torch.core.solvers.schur_implicit, "
+            "g2o_tpu_torch.types.slam2d, "
+            "g2o_tpu_torch.core.solvers.host_chol, "
+            "g2o_tpu_torch.core.optimizer, g2o_tpu_torch.core.lm_fused, "
+            "chip_smoke")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
