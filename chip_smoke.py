@@ -62,7 +62,10 @@ exits non-zero without printing a result:
    gather and segment sum (K7, K8) must put one operation on the card per
    call at the runtime-bucketed ladybug shape, the dims-major gather
    (K5/K10) and segment sum (K6/K9) at the three dims-major paths' shapes,
-   where two calls of the sum must also give the same bits;
+   where two calls of the sum must also give the same bits; and K7/K8 at
+   the mixed sba path's shapes (phase 10): (49, 6) -> (E_pad, 6) gathers
+   bit for bit, (E_pad, 6) -> (49, 6) and (E_pad, 36) -> (49, 36) sums
+   (the latter past ``ROWSUM_MAX_CELLS``: a memset and the kernel);
 8. main paths, implicit Schur: ``ImplicitSchurSolver`` with ``bench.py``'s
    settings, 10 LM iterations after a warm-up, float32, every camera free:
    ladybug, Venice (``bal-C800-P150000-K6``, with gauge deflation) and
@@ -92,6 +95,24 @@ exits non-zero without printing a result:
    card, each of which must reach the reference's gn_var fixed point
    (+0.25) within 8 iterations, each traced as well (device ms per GN
    iteration); and a save/reload of the exact result.
+
+10. main paths, sba (``g2o_tpu_torch/types/sba.py``): ba_demo's geometry
+    as ``create_ba_scene(n_cameras=49, n_points=7000, seed=0)`` builds it
+    (6,412 points, 218,655 observations), three problems: anchored inverse
+    depth as ``examples/ba_anchored_inverse_depth.py`` builds it (3-ary
+    ``EDGE_PROJECT_PSI2UV``, a third of the points anchored on free
+    cameras), every third point kept out of the marginalization, and the
+    points observed by stereo edges from even cameras and mono edges from
+    odd ones (``bucket_landmarks=True``: the bucketed multi-observer
+    branch, K7 and K8 in the CG body). Each: one f64 solve at the initial
+    linearization against ``DenseSolver`` (≤ 1e-7; on the mixed path also
+    the bucketed step against the ``rows`` step, ≤ 1e-10), 15 f64 LM
+    iterations with the example's ``ImplicitSchurSolver(max_iter=150,
+    tol=1e-8)``, then the same in f32 (``[main_path_<path>]``): its final
+    chi2 within 1% of the f64 run's and 10× below the first; CG iterations
+    and kernel launches per λ-trial (``[launches_<path>]``; inverse depth
+    also the example's median world-point error; mixed also the f32 run at
+    ``layout="rows"``).
 
 Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
@@ -165,6 +186,20 @@ IMPLICIT_PATHS = {
                                  layout="bucketed"),
                      bound=48790.33 * 1.01, ref_ms=41.6),
 }
+# the sba paths: ba_demo's geometry as create_ba_scene builds it at 49
+# cameras and 7000 drawn points (6,412 seen by two or more cameras, 218,655
+# observations), examples/ba_anchored_inverse_depth.py's solver and
+# iteration count, the stereo edges' focal x baseline; the f64 check's
+# solve runs CG to the rounding floor
+SBA_SCENE = dict(n_cameras=49, n_points=7000, seed=0)
+SBA_SOLVER = dict(max_iter=150, tol=1e-8)
+SBA_ITERS = 15
+SBA_TRACE_ITERS = 2         # the general path puts ~9k operations a trial
+SBA_BF = 75.0
+SBA_PATHS = ("inverse_depth", "partial", "mixed")
+SBA_CHECK_SOLVER = dict(max_iter=2000, tol=1e-13)
+SBA_EDGES = ("EDGE_STEREO_SE3_PROJECT_XYZ:EXPMAP",
+             "EDGE_SE3_PROJECT_XYZ:EXPMAP")
 # the row-major wrappers (K7, K8) that put one operation per call on the
 # card at the runtime-bucketed ladybug shape
 RUNTIME_ONE_OP = ("onehot_gather", "onehot_scatter_add")
@@ -577,13 +612,15 @@ def trace_gn(p, est0, run, tag, ms_per_iteration, iters):
 
 
 def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
-            iters=50, chi2_bound=CHI2_BOUND, extra=None, watch=None):
+            iters=50, chi2_bound=CHI2_BOUND, extra=None, watch=None,
+            trace_iters=5):
     """Warm up, then run ``optimize_fused(p, solver, iters)`` from ``est0``
     with every kernel count set to 0 just before; print the ``[tag]`` line
     (plus the ``extra`` facts) and raise unless every chi2 is finite, the
     final chi2 is within ``chi2_bound`` and each kernel of ``need``
-    launched; then trace it (``[trace_<tag>]``).  Returns the
-    result and the launch counts of that run."""
+    launched; then trace ``trace_iters`` iterations of it
+    (``[trace_<tag>]``).  Returns the result and the launch counts of that
+    run."""
     g2o.optimize_fused(p, solver, 2)                 # warm-up
     p.set_estimates({t: v.clone() for t, v in est0.items()})
     for w in wrappers.values():
@@ -619,7 +656,8 @@ def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
         raise RuntimeError(f"{tag}: final chi2 {res['chi2_final']} after {n} "
                            f"iterations; need <= {chi2_bound}")
     trace(g2o, p, est0, solver, tag,
-          res["wall_s"] * 1e3 / max(trials, 1), watch=watch)
+          res["wall_s"] * 1e3 / max(trials, 1), iters=trace_iters,
+          watch=watch)
     return res, launches
 
 
@@ -1093,36 +1131,47 @@ def load_implicit(torch, g2o):
     return out
 
 
-def _path_ids(implicit):
-    """``{kind: (ids, S)}``: the camera ids the implicit paths hand the
-    gather and segment-sum kernels — the slab-ordered ids of the three
-    dims-major paths (Venice, ladybug, stress) and the runtime-bucketed
-    ladybug ids, whose padded slots carry the sentinel ``S``."""
+def _path_ids(implicit, sba):
+    """``{kind: (ids, S, widths)}``: the camera ids the implicit paths hand
+    the gather and segment-sum kernels and the row widths they gather and
+    sum (the camera's tangent dim and its square) — the slab-ordered ids of
+    the three dims-major paths (Venice, ladybug, stress), the
+    runtime-bucketed ladybug ids, whose padded slots carry the sentinel
+    ``S``, and the slab-ordered ids of the mixed sba path's stereo and mono
+    batches."""
     name, cam = "EDGE_OBSERVATION_BAL", "VERTEX_CAMERA_BAL"
     out = {}
     for kind, suffix in (("venice", "_venice"), ("ladybug_dm", ""),
                          ("stress_dm", "_stress")):
         p, _, _ = implicit[suffix]
         nb = p.bucket_specs[name].n_rows
-        out[kind] = (p.data.plans[name]["ids32"][0, :nb], p.counts[cam])
+        out[kind] = (p.data.plans[name]["ids32"][0, :nb], p.counts[cam],
+                     (9, 81))
     p, solver, _ = implicit["_runtime"]
-    out["ladybug_runtime"] = (solver.aux[name]["cam"], p.counts[cam])
+    out["ladybug_runtime"] = (solver.aux[name]["cam"], p.counts[cam], (9, 81))
+    p = sba["mixed"]["p32"]
+    for kind, name in zip(("mixed_stereo", "mixed_mono"), SBA_EDGES):
+        sp = p.bucket_specs[name]
+        out[kind] = (p.data.plans[name]["ids32"][sp.pose_slot, :sp.n_rows],
+                     p.counts["VERTEX_SE3:EXPMAP"], (6, 36))
     return out
 
 
-def onehot_kernel_phase(torch, oh, implicit):
+def onehot_kernel_phase(torch, oh, implicit, sba):
     """The gather and segment-sum kernels against their plain versions on
     the card, float32 and float64, in both layouts, at the Pallas test
     shape (ids up to S+3), unsorted shapes with ids in [-3, S+5) and the
     implicit paths' shapes with their solvers' ids (D = 9 for the camera
-    states, b and the CG vectors, D = 81 for the camera diagonal blocks);
+    states, b and the CG vectors, D = 81 for the camera diagonal blocks; on
+    the mixed sba path D = 6 and 36, where only K7 at D = 6 and K8 are
+    timed);
     at the path shapes in float32 times kernel, plain version and one
     ``index_select`` / ``index_add`` into ``S+1`` rows, in turns (six
     windows of 200 calls a side, the median), with the device µs and
     operations of one call.  Returns
     ``{shape: {kernel: {...}}}``."""
     rng = np.random.default_rng(2)
-    path_ids = _path_ids(implicit)
+    path_ids = _path_ids(implicit, sba)
     # the segment sum keeps a shared accumulator while one column of S
     # values fits 96 KB (S <= 24576 in float32, 12288 in float64) and adds
     # into global memory above: S = 20000 lies below in float32 and above
@@ -1134,8 +1183,8 @@ def onehot_kernel_phase(torch, oh, implicit):
     cases = [(700, 37, 5, "pallas_test"), (5000, 300, 81, "out_of_range"),
              (300000, 20000, 9, "wide_s"), (300000, 70000, 9, "wide_s"),
              (40001, 120, 9, "ragged"), (40000, 120, 9, "misaligned")]
-    for kind, (ids, S) in path_ids.items():
-        cases += [(ids.shape[0], S, 9, kind), (ids.shape[0], S, 81, kind)]
+    for kind, (ids, S, widths) in path_ids.items():
+        cases += [(ids.shape[0], S, D, kind) for D in widths]
     out = {}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[1]
@@ -1191,6 +1240,10 @@ def onehot_kernel_phase(torch, oh, implicit):
                                    f"{same}")
             if kind not in path_ids or dtype != torch.float32:
                 continue
+            # the mixed sba path runs the row-major kernels only: K7 on its
+            # (49, 6) camera states, K8 on rows of 6 and 36
+            timed = fns if not kind.startswith("mixed") else (
+                RUNTIME_ONE_OP if D == 6 else ("onehot_scatter_add",))
             # the library call: index_select / index_add over S+1 rows, the
             # last a zero row (takes the runtime path's sentinel id S)
             tz = torch.cat([table, table.new_zeros((1, D))])
@@ -1202,7 +1255,8 @@ def onehot_kernel_phase(torch, oh, implicit):
                                                                  rows),
                    "onehot_scatter_add_t": lambda: torch.index_add(
                        Zt, 1, ids, rows_t)}
-            for k, (kern, plain) in fns.items():
+            for k in timed:
+                kern, plain = fns[k]
                 # a call here is 15-25 µs of host time, and windows of the
                 # shared host vary by a third: 200 calls per window and the
                 # median of six windows a side
@@ -1228,10 +1282,19 @@ def onehot_kernel_phase(torch, oh, implicit):
                 # K7 and K8 at the runtime-bucketed shape, K5/K10 and K6/K9
                 # at the dims-major paths': one operation on the card per
                 # call (no memset or copy beside the kernel); K6/K9's sums
-                # the same bits on two calls
+                # the same bits on two calls.  On the mixed path K7 is one
+                # operation, K8 one up to S·D = ROWSUM_MAX_CELLS and a
+                # memset and the kernel past it
                 one_op = (k in RUNTIME_ONE_OP if kind == "ladybug_runtime"
                           else k in DIMS_MAJOR_ONE_OP)
-                if one_op and (D == 9 or kind != "ladybug_runtime") and \
+                if kind.startswith("mixed"):
+                    want = (2 if k == "onehot_scatter_add"
+                            and S * D > oh.ROWSUM_MAX_CELLS else 1)
+                    if ops != want:
+                        raise RuntimeError(f"{k} at {shape} ({kind}) puts "
+                                           f"{ops} operations on the card "
+                                           f"per call, not {want}")
+                elif one_op and (D == 9 or kind != "ladybug_runtime") and \
                         ops != 1:
                     raise RuntimeError(f"{k} at {shape} puts {ops} "
                                        f"operations on the card per call")
@@ -1338,6 +1401,248 @@ def implicit_layer_times(torch, g2o, p, solver, lam, explicit=False):
     return out
 
 
+def sba_graphs(scene=None):
+    """The three sba problems of ba_demo's geometry, as ``create_ba_scene``
+    builds it (focal 1000, (cx, cy) = (320, 240), cameras 0 and 1 fixed),
+    from one ``create_ba_scene(**scene)``: ``({path: (Graph,
+    bucket_landmarks)}, {point vid: anchor camera}, {point vid: true
+    point})``.
+
+    * ``inverse_depth``: as ``examples/ba_anchored_inverse_depth.py``
+      builds it — each point anchored on the first camera that sees it,
+      psi = (x/z, y/z, 1/z) of its noisy world point in that frame, one
+      3-ary ``EDGE_PROJECT_PSI2UV`` per observation (the example draws the
+      same noise in the same order as ``create_ba_scene``);
+    * ``partial``: ``create_ba_scene``'s graph with every third point not
+      marginalized;
+    * ``mixed``: the same points, stereo edges (f, f, cx, cy, bf) from even
+      cameras with u_right = u - bf/z of the true depth, mono edges (f, f,
+      cx, cy) from odd ones; built with ``bucket_landmarks``."""
+    import torch
+
+    from g2o_tpu_torch.core.graph import Graph
+    from g2o_tpu_torch.ops import lie
+    from g2o_tpu_torch.sim.generators import create_ba_scene
+    from g2o_tpu_torch.types import sba
+
+    base, truth = create_ba_scene(**(scene or SBA_SCENE))
+    verts = base.vertices()
+    cams = [r for vid, r in sorted(verts.items()) if vid not in truth]
+    pts = list(truth)
+    vids = np.array([e.vids for e in base.edges()])       # (point, camera)
+    meas = np.stack([e.measurement for e in base.edges()])
+    cam_par = base.parameter(sba.CAM_PARAM_ID)
+    f, cx, cy = cam_par[:3]
+
+    def with_cameras(params):
+        g = Graph()
+        for pid, v in params.items():
+            g.add_parameter(pid, v)
+        for c in cams:
+            g.add_vertex(c.vid, c.vtype, c.estimate, fixed=c.fixed)
+        return g
+
+    # edges are point-major in camera order: a point's first edge names
+    # its anchor
+    _, first = np.unique(vids[:, 0], return_index=True)
+    anchor = vids[first, 1]
+    cam_est = np.stack([c.estimate for c in cams])
+    pa = lie.se3_act(torch.tensor(cam_est[anchor]), torch.tensor(
+        np.stack([verts[v].estimate for v in pts]))).numpy()
+    psi = np.stack([pa[:, 0] / pa[:, 2], pa[:, 1] / pa[:, 2],
+                    1.0 / pa[:, 2]], axis=1)
+    anchor_of = dict(zip(pts, anchor.tolist()))
+    g_id = with_cameras({sba.CAM_PARAM_ID: cam_par})
+    for v, x in zip(pts, psi):
+        g_id.add_vertex(v, sba.VertexPointXYZ, x, marginalized=True)
+    for (v, i), m in zip(vids.tolist(), meas):
+        g_id.add_edge(sba.EdgeProjectPSI2UV, [v, i, anchor_of[v]], m,
+                      np.eye(2), param_id=sba.CAM_PARAM_ID)
+
+    g_mx = with_cameras({1: [f, f, cx, cy], 2: [f, f, cx, cy, SBA_BF]})
+    for v in pts:
+        g_mx.add_vertex(v, sba.VertexPointXYZ, verts[v].estimate,
+                        marginalized=True)
+    for (v, i), m in zip(vids.tolist(), meas):
+        if i % 2 == 0:        # R = I, t_z = 0: the camera depth is the z
+            g_mx.add_edge(sba.EdgeStereoSE3ProjectXYZ, [v, i],
+                          [m[0], m[1], m[0] - SBA_BF / truth[v][2]],
+                          np.eye(3), param_id=2)
+        else:
+            g_mx.add_edge(sba.EdgeSE3ProjectXYZ, [v, i], m, np.eye(2),
+                          param_id=1)
+
+    for j, v in enumerate(pts):
+        if j % 3 == 0:
+            base.set_marginalized(v, False)
+    return ({"inverse_depth": (g_id, False), "partial": (base, False),
+             "mixed": (g_mx, True)}, anchor_of, truth)
+
+
+def load_sba(torch, scene=None, device="cuda"):
+    """The sba problems on ``device``, f32 and f64: ``{path: dict(p32,
+    p64, est32, est64)}``, plus ``"_anchors"`` / ``"_truth"``."""
+    t0 = time.perf_counter()
+    graphs, anchor_of, truth = sba_graphs(scene)
+    t1 = time.perf_counter()
+    out = {"_anchors": anchor_of, "_truth": truth}
+    for path, (g, bucket) in graphs.items():
+        ps = {dt: g.compile(dtype=getattr(torch, dt), device=device,
+                            bucket_landmarks=bucket)
+              for dt in ("float32", "float64")}
+        p = ps["float64"]
+        n_lm = int(p.marginalized["VERTEX_TRACKXYZ"].sum())
+        phase(f"load_sba_{path}", cameras=p.counts["VERTEX_SE3:EXPMAP"],
+              points=p.counts["VERTEX_TRACKXYZ"], marginalized_points=n_lm,
+              observations=p.num_edges,
+              edges=",".join(f"{k}:{b.vidx.shape[0]}"
+                             for k, b in p.data.edges.items()),
+              tangent_dims=p.total_dim,
+              reduced_dims=p.total_dim - 3 * n_lm,
+              bucket_landmarks=bucket)
+        out[path] = dict(p32=ps["float32"], p64=p, est32={
+            t: v.clone() for t, v in ps["float32"].estimates.items()},
+            est64={t: v.clone() for t, v in p.estimates.items()})
+    phase("load_sba", scene_seconds=f"{t1 - t0:.3f}",
+          compile_seconds=f"{time.perf_counter() - t1:.3f}")
+    return out
+
+
+def sba_check(torch, g2o, path, p):
+    """One f64 solve at the initial linearization and λ₀ = 1e-5·max|H_jj|
+    (LM's first λ) against ``DenseSolver`` (relative difference ≤ 1e-7);
+    on ``mixed`` also the bucketed step against the ``rows`` step (≤
+    1e-10)."""
+    from g2o_tpu_torch.core.optimizer import _max_abs_diag
+
+    lin = p.linearize_fn(p.data, p.estimates)
+    lam0 = 1e-5 * float(_max_abs_diag(p, lin))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dx_d = g2o.DenseSolver().setup(p).solve(p.data, lin, lam0)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    s = g2o.ImplicitSchurSolver(**SBA_CHECK_SOLVER).setup(p)
+    t0 = time.perf_counter()
+    dx, st = s._solve_full(p.data, lin, lam0, s.aux)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rel = float((dx - dx_d).norm() / dx_d.norm())
+    facts = dict(layout=s._layout["form"], lam0=f"{lam0:.6e}",
+                 rel_diff_to_dense=f"{rel:.3e}", limit="1e-7",
+                 cg_iterations=st["cg_iterations"],
+                 rel_residual=f"{math.sqrt(float(st['residual2']) / float(st['rhs2'])):.3e}",
+                 implicit_ms=f"{ms:.1f}", dense_ms=f"{dense_ms:.1f}",
+                 dense_dim=p.total_dim,
+                 peak_device_gib=f"{peak_gb:.2f}")
+    ok = math.isfinite(rel) and rel <= 1e-7
+    if path == "mixed":
+        r = g2o.ImplicitSchurSolver(**SBA_CHECK_SOLVER,
+                                    layout="rows").setup(p)
+        dx_r, st_r = r._solve_full(p.data, lin, lam0, r.aux)
+        rel_r = float((dx - dx_r).norm() / dx_r.norm())
+        facts.update(rel_diff_to_rows=f"{rel_r:.3e}", rows_limit="1e-10",
+                     rows_cg_iterations=st_r["cg_iterations"],
+                     rows_rel_diff_to_dense=
+                     f"{float((dx_r - dx_d).norm() / dx_d.norm()):.3e}")
+        ok = ok and rel_r <= 1e-10
+    phase(f"check_sba_{path}", **facts)
+    if not ok:
+        raise RuntimeError(f"sba {path}: the f64 implicit step misses its "
+                           f"bar: {facts}")
+
+
+def median_world_error(p, anchor_of, truth):
+    """examples/ba_anchored_inverse_depth.py's figure: the median distance
+    of X = T_anchor^-1 (u, v, 1)/rho from the true point."""
+    import torch
+
+    from g2o_tpu_torch.ops import lie
+
+    est = p.estimates_by_vid()
+    v = list(truth)
+    psi = np.stack([est[x] for x in v]).astype(np.float64)
+    T = np.stack([est[anchor_of[x]] for x in v]).astype(np.float64)
+    pc = np.stack([psi[:, 0], psi[:, 1], np.ones(len(v))], 1) / psi[:, 2:3]
+    X = lie.se3_act(lie.se3_inverse(torch.tensor(T)), torch.tensor(pc))
+    return float(np.median(np.linalg.norm(
+        X.numpy() - np.stack([truth[x] for x in v]), axis=1)))
+
+
+def sba_path_phase(torch, g2o, wrappers, sba):
+    """The three sba paths: the f64 check against the dense solver, the
+    f64 LM run, then the f32 LM run (``_run_lm``: its chi2 within 1% of
+    the f64 run's and 10x below the first), traced; on ``mixed`` the same
+    f32 run at ``layout="rows"`` beside it.  Returns the launch counts of
+    each f32 run."""
+    by_path = {}
+    for path in SBA_PATHS:
+        t0 = time.perf_counter()
+        d = sba[path]
+        p64, p32 = d["p64"], d["p32"]
+        sba_check(torch, g2o, path, p64)
+        res64 = g2o.optimize_fused(p64, g2o.ImplicitSchurSolver(**SBA_SOLVER),
+                                   SBA_ITERS)
+        chi64 = res64["chi2_final"]
+        chi0 = res64["chi2_per_iteration"][0]
+        tag = f"main_path_{path}"
+        solver = g2o.ImplicitSchurSolver(**SBA_SOLVER).setup(p32)
+        need = RUNTIME_ONE_OP if path == "mixed" else ()
+        res, launches = _run_lm(
+            torch, g2o, wrappers, p32, d["est32"], solver, tag, need=need,
+            iters=SBA_ITERS, chi2_bound=min(chi64 * 1.01, chi0 / 10),
+            watch={"k7": ("gather_rows_kernel", "gather_kernel"),
+                   "k8": ("segment_sum_rows_kernel", "scatter_add_kernel")}
+            if path == "mixed" else None, trace_iters=SBA_TRACE_ITERS,
+            extra=dict(layout=solver._layout["form"],
+                       f64_chi2_0=f"{chi0:.4f}",
+                       f64_chi2_final=f"{chi64:.4f}",
+                       f64_iterations=res64["iterations"],
+                       f64_ms_per_lambda_trial=
+                       f"{res64['wall_s'] * 1e3 / max(sum(res64['trials_per_iteration']), 1):.3f}"))
+        if abs(res["chi2_final"] - chi64) > 0.01 * chi64:
+            raise RuntimeError(f"{tag}: f32 chi2 {res['chi2_final']} not "
+                               f"within 1% of the f64 run's {chi64}")
+        trials = max(sum(res["trials_per_iteration"]), 1)
+        facts = dict(layout=solver._layout["form"], lm_trials=trials,
+                     cg_iterations_per_solve=
+                     f"{sum(res['cg_per_iteration']) / trials:.2f}",
+                     cg_per_iteration=",".join(map(str,
+                                                   res["cg_per_iteration"])),
+                     **{f"{k}_per_lambda_trial":
+                        f"{launches[k] / trials:.2f}" for k in ONEHOT})
+        if path == "inverse_depth":
+            facts["median_world_point_error"] = "{:.4f}".format(
+                median_world_error(p32, sba["_anchors"], sba["_truth"]))
+            facts["anchored_points"] = len(sba["_truth"])
+            facts["free_anchor_share"] = "{:.4f}".format(np.mean(
+                [a >= 2 for a in sba["_anchors"].values()]))
+        if path == "mixed":
+            rows = g2o.ImplicitSchurSolver(**SBA_SOLVER, layout="rows")
+            g2o.optimize_fused(p32, rows, 2)
+            p32.set_estimates({t: v.clone() for t, v in d["est32"].items()})
+            res_r = g2o.optimize_fused(p32, rows, SBA_ITERS)
+            trials_r = max(sum(res_r["trials_per_iteration"]), 1)
+            facts.update(
+                rows_ms_per_lambda_trial=
+                f"{res_r['wall_s'] * 1e3 / trials_r:.3f}",
+                rows_ms_per_lm_iteration=
+                f"{res_r['wall_s'] * 1e3 / max(res_r['iterations'], 1):.3f}",
+                rows_cg_iterations_per_solve=
+                f"{sum(res_r['cg_per_iteration']) / trials_r:.2f}",
+                rows_chi2_final=f"{res_r['chi2_final']:.4f}")
+            if abs(res_r["chi2_final"] - chi64) > 0.01 * chi64:
+                raise RuntimeError(f"{tag} rows: f32 chi2 "
+                                   f"{res_r['chi2_final']} not within 1% of "
+                                   f"the f64 run's {chi64}")
+        facts["phase_seconds"] = f"{time.perf_counter() - t0:.1f}"
+        phase(f"launches_{path}", **facts)
+        by_path[tag] = launches
+    return by_path
+
+
 def main():
     import torch
 
@@ -1365,11 +1670,13 @@ def main():
     ba = load_ba(torch, g2o)
     seg_times = segment_kernel_phase(torch, sk, ba)
     implicit = load_implicit(torch, g2o)
-    onehot_times = onehot_kernel_phase(torch, oh, implicit)
+    sba = load_sba(torch)
+    onehot_times = onehot_kernel_phase(torch, oh, implicit, sba)
     by_path = main_path_phase(torch, g2o, wrappers)
     by_path.update(ba_main_path_phase(torch, g2o, wrappers, ba))
     by_path.update(implicit_main_path_phase(torch, g2o, wrappers, implicit))
     by_path.update(manhattan_path_phase(torch, g2o, wrappers))
+    by_path.update(sba_path_phase(torch, g2o, wrappers, sba))
     # a new kernel's launches are its wrappers' launches
     for counts in by_path.values():
         for k, ws in NEW_KERNELS.items():
@@ -1378,7 +1685,7 @@ def main():
     lay = ba["ladybug"][1]._layout
     times.update(seg_times)
     times.update(onehot_times)
-    n_venice = _path_ids(implicit)["venice"][0].shape[0]
+    n_venice = _path_ids(implicit, sba)["venice"][0].shape[0]
     shape_key = {k: _shape(*sh) for k, sh in PRIMARY.items()}
     shape_key["segment_sum"] = (f"{lay['n_pairs']}x{lay['dp'] ** 2}->"
                                 f"{lay['n_uniq']}")

@@ -1,6 +1,5 @@
 """Implicit (matrix-free) Schur-complement solver for large bundle
-adjustment — port of the binary-edge path of
-``g2o_tpu/core/solvers/schur_implicit.py``.
+adjustment — port of ``g2o_tpu/core/solvers/schur_implicit.py``.
 
 The explicit :class:`~g2o_tpu_torch.core.solvers.schur.SchurSolver`
 enumerates every observation pair of a landmark (Σ deg² products) to form
@@ -16,7 +15,9 @@ blocks:
     S v = Hpp v − Σ_e B_e s_{lm_e}
 
 and the landmarks back-substitute as in the explicit path (the reference's
-Schur loop, ``block_solver.hpp:339-393``).  Three observation layouts:
+Schur loop, ``block_solver.hpp:339-393``).  The standard binary pattern
+(one pose slot per observation edge, every vertex of a landmark type
+marginalized) has three observation layouts:
 
 * ``layout="rows"`` — row gathers and ``index_add_`` through each edge
   batch's ``vidx``;
@@ -32,17 +33,31 @@ Schur loop, ``block_solver.hpp:339-393``).  Three observation layouts:
   the camera side runs the dims-major gather and segment-sum kernels, and
   no landmark-axis index op is left in the CG body.
 
+A landmark type observed by several edge types (ORB-SLAM's mono and stereo
+edges on one map) keeps the bucketed slabs per edge type but leaves the
+dims-major path (each batch's extras hold one edge type's share of the
+landmark system): per-slab sums are added into natural landmark order
+(``seg_add``), inverted there and read back per batch (``seg_take``); the
+camera side stays on the row-major gather and segment-sum kernels.
+
+Every other pattern takes the general path (rows layout only): n-ary
+observation edges, one B block per (edge type, pose slot) — inverse-depth
+``EDGE_PROJECT_PSI2UV`` couples a point to its observing and its anchor
+camera — and per-vertex partial marginalization, whose retained landmark
+rows ride the CG beside the poses.
+
 Preconditioners: ``"schur_jacobi"`` (default) — the per-camera diagonal
 blocks of the REDUCED system, ``Hpp_jj − Σ B_e Dinv B_eᵀ``; ``"jacobi"`` —
-the damped ``Hpp`` blocks.  ``deflate_basis`` (``{pose type: (N, d, k)}``,
-orthonormal, e.g. :func:`g2o_tpu_torch.types.bal.bal_gauge_basis`) runs CG
-on the orthogonal complement of the free-gauge null space.
+the damped ``Hpp`` blocks.  Neither holds the cross term of a vertex that
+sits in two slots of one edge (an observer that is its own anchor); the
+matvec does.  ``deflate_basis`` (``{pose type: (N, d, k)}``, orthonormal,
+e.g. :func:`g2o_tpu_torch.types.bal.bal_gauge_basis`) runs CG on the
+orthogonal complement of the free-gauge null space (binary path only).
 
 The JAX package's ``lax.while_loop`` is a Python loop here: its stop test
 reads one scalar from the device per CG iteration.  ``matvec_precision`` is
 accepted for API parity: TF32 stays off, so every product is full
-float32/float64.  The general path (n-ary observation edges, partial
-marginalization) is not ported and raises.
+float32/float64.
 """
 
 from __future__ import annotations
@@ -55,6 +70,75 @@ from g2o_tpu_torch.ops.onehot import (onehot_gather, onehot_gather_t,
                                       onehot_scatter_add,
                                       onehot_scatter_add_t)
 from g2o_tpu_torch.ops.smallblocks import inv_small, inv_small_t
+
+
+def _damped_diag(p, data, lin, lam, types):
+    """``H_jj + λI`` per vertex of ``types``; a unit block on fixed ones."""
+    out = {}
+    for t in types:
+        eye = torch.eye(p.vertex_types[t].tangent_dim, dtype=p.dtype,
+                        device=p.device)
+        fx = data.fixed[t].to(p.dtype)[:, None, None]
+        out[t] = (lin.diag[t] + lam * eye) * (1.0 - fx) + eye * fx
+    return out
+
+
+def _apply_blocks(blocks, v, types):
+    """``{t: blocks[t] · v[t]}``, a batched block matvec per type."""
+    return {t: torch.einsum("nij,nj->ni", blocks[t], v[t]) for t in types}
+
+
+def _pair_couplings(out, et, vidx, Js, W, slots, vb):
+    """Add the off-diagonal ``Hᵢⱼ v`` of every slot pair of ``slots`` (i ≠
+    j) of one edge batch into ``out`` (row-major Jacobians)."""
+    for i in slots:
+        acc = None
+        for j in slots:
+            if i == j:
+                continue
+            h = torch.einsum("erd,ers,esf,ef->ed", Js[i], W, Js[j],
+                             vb[et.vertex_types[j].name][vidx[:, j]])
+            acc = h if acc is None else acc + h
+        if acc is not None:
+            ti = et.vertex_types[i].name
+            out[ti] = out[ti].index_add(0, vidx[:, i], acc)
+    return out
+
+
+def _pcg(S_vec, precond, project, bschur, types, tol, max_iter, carry):
+    """PCG on the reduced system; ``(x, stats)``.  The stop test ``‖r‖² ≤
+    max(tol²‖b‖², carry)`` is read on the host once per iteration;
+    ``carry`` (half the previous solve's final ‖r‖²) is the reference PCG's
+    absoluteTolerance continuation (``linear_solver_pcg.hpp:124-127,149``)."""
+    def pdot(a, b):
+        return sum(torch.sum(a[t] * b[t]) for t in types)
+
+    x = {t: torch.zeros_like(bschur[t]) for t in types}
+    r = project(bschur)
+    z = project(precond(r))
+    pv, rz = z, pdot(r, z)
+    rhs2 = pdot(bschur, bschur)
+    thresh = tol * tol * rhs2
+    if carry is not None:
+        thresh = torch.maximum(thresh, carry.to(thresh.dtype))
+    it = 0
+    while it < max_iter and bool(pdot(r, r) > thresh):
+        Ap = project(S_vec(pv))
+        alpha = rz / pdot(pv, Ap)
+        x = {t: x[t] + alpha * pv[t] for t in types}
+        r = {t: r[t] - alpha * Ap[t] for t in types}
+        z = project(precond(r))
+        rz2 = pdot(r, z)
+        pv = {t: z[t] + (rz2 / rz) * pv[t] for t in types}
+        rz = rz2
+        it += 1
+    res2 = pdot(r, r)
+    return x, {"cg_iterations": it, "residual2": res2, "rhs2": rhs2,
+               "carry": 0.5 * res2}
+
+
+def _unprojected(vb):
+    return vb
 
 
 class ImplicitSchurSolver:
@@ -138,16 +222,20 @@ class ImplicitSchurSolver:
         if self._setup_for is problem and not force:
             return self
         p = problem
-        (lm_types, pose_types, obs_specs, pose_edge_types, _,
+        (lm_types, pose_types, obs_specs, pose_edge_types, partial,
          general) = self._classify(p)
         if general:
-            raise NotImplementedError(
-                "ImplicitSchurSolver: n-ary observation edges and partial "
-                "marginalization need the general path, which is not "
-                "ported yet (ROADMAP A.6)")
+            # n-ary observation edges or per-vertex partial
+            # marginalization: the exact rows-layout general path
+            if self.layout == "bucketed":
+                raise NotImplementedError(
+                    "layout='bucketed' supports the standard binary "
+                    "pose-landmark pattern only; this graph needs the "
+                    "general path (layout='rows'/'auto')")
+            return self._setup_general(p, lm_types, pose_types, obs_specs,
+                                       pose_edge_types, partial)
         obs_specs = [(name, ps[0], ls) for name, ps, ls in obs_specs]
         dtype, dev = p.dtype, p.device
-        max_iter, tol = self.max_iter, self.tol
         use_schur_precond = self.precond == "schur_jacobi"
         pre = {name: name in p.bucket_specs for name, _, _ in obs_specs}
         if self.layout == "bucketed":
@@ -160,13 +248,22 @@ class ImplicitSchurSolver:
                  for name, _, ls in obs_specs}
         pt_of = {name: p.edge_types[name].vertex_types[ps].name
                  for name, ps, _ in obs_specs}
-        if bucketed:
-            users = [lm_of[name] for name, _, _ in obs_specs]
-            if len(set(users)) != len(users):
-                raise NotImplementedError(
-                    "ImplicitSchurSolver: the bucketed layouts of a landmark "
-                    "type observed by several edge types are not ported yet "
-                    "(use layout='rows')")
+        # a landmark type observed by ONE edge type runs the CG body in
+        # bucket order (BAL and every standard BA graph); a batch of a
+        # compile-time bucketed problem whose landmark type has one
+        # observer is fully dims-major (``dm``)
+        users = {}
+        for name, _, _ in obs_specs:
+            users.setdefault(lm_of[name], []).append(name)
+        sole_obs = {name: len(users[lm_of[name]]) == 1
+                    for name, _, _ in obs_specs}
+        dm = {name: bucketed and pre[name] and sole_obs[name]
+              for name, _, _ in obs_specs}
+        dm_lm = {lm_of[name] for name, _, _ in obs_specs if dm[name]}
+        # the obs batches whose Schur term reduces in natural landmark order
+        rem = [spec for spec in obs_specs
+               if not (bucketed and sole_obs[spec[0]])]
+        rem_lm = list(dict.fromkeys(lm_of[name] for name, _, _ in rem))
 
         # ---------------- host symbolic phase: bucket plans ------------- #
         bspec, aux = {}, {}
@@ -195,18 +292,6 @@ class ImplicitSchurSolver:
                 t: torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
                 for t, v in self.deflate_basis.items()}
         self.aux = aux
-
-        def damped_diag(data, lin, lam, types):
-            out = {}
-            for t in types:
-                d = p.vertex_types[t].tangent_dim
-                eye = torch.eye(d, dtype=dtype, device=dev)
-                fx = data.fixed[t].to(dtype)[:, None, None]
-                out[t] = (lin.diag[t] + lam * eye) * (1.0 - fx) + eye * fx
-            return out
-
-        def pdot(a, b):
-            return sum(torch.sum(a[t] * b[t]) for t in pose_types)
 
         # landmark side: per-bucket slabs, degree-major (deg, n_seg)
         def bucket_down(spec, B_pad, u_pad):
@@ -272,6 +357,8 @@ class ImplicitSchurSolver:
         def seg_ident(name):
             return pre[name] and p.bucket_specs[name].seg_identity
 
+        # bucket-order <-> natural-order landmark rows: slices when the type
+        # was reordered into bucket order at compile time, else ``segp``
         def seg_take(data, name, arr):
             if seg_ident(name):
                 return arr[:sum(p.bucket_specs[name].counts)]
@@ -301,10 +388,9 @@ class ImplicitSchurSolver:
             bucket-order landmark system from the linearization's extras;
             the others build B = Jpᵀ W Jl dims-major from the Jacobians."""
             ext = lin.extras or {}
-            dm = {name: bucketed and pre[name] for name, _, _ in obs_specs}
-            dm_lm = {lm_of[name] for name, _, _ in obs_specs if dm[name]}
-            Dinv = {t: inv_small(D) for t, D in damped_diag(
-                data, lin, lam, [t for t in lm_types if t not in dm_lm]).items()}
+            Dinv = {t: inv_small(D) for t, D in _damped_diag(
+                p, data, lin, lam,
+                [t for t in lm_types if t not in dm_lm]).items()}
             Bt_s, Dinv_t, bl_bt = {}, {}, {}
             for name, ps, ls in obs_specs:
                 if not dm[name]:
@@ -324,7 +410,7 @@ class ImplicitSchurSolver:
                 if dm[name]:
                     continue
                 Js, W = lin.jacs[name], lin.weights[name]
-                if name in p.bucket_specs:       # dims-major leaves already
+                if pre[name]:                    # dims-major leaves already
                     Jpt, Jlt, Wt = Js[ps], Js[ls], W
                 else:
                     Jpt = Js[ps].permute(1, 2, 0)            # (r, dp, E)
@@ -334,19 +420,24 @@ class ImplicitSchurSolver:
                 Bt[name] = torch.sum(Jpt[:, :, None, :] * WJl[:, None],
                                      dim=0)                  # (dp, dl, E)
                 B[name] = Bt[name].permute(2, 0, 1)
-            ctx = dict(dm=dm, dm_lm=dm_lm, Dinv=Dinv, Bt_s=Bt_s,
-                       Dinv_t=Dinv_t, bl_bt=bl_bt, B=B)
+            ctx = dict(Dinv=Dinv, Bt_s=Bt_s, Dinv_t=Dinv_t, bl_bt=bl_bt, B=B)
             if bucketed:
-                # B in slab order once per solve (sentinel row E is zero);
-                # dims-major copies for the CG body
+                # B in slab order once per solve (a compile-time bucketed
+                # batch is in slab order already; else the sentinel row E
+                # is zero); dims-major copies for the CG body
                 Bp, Bpt, Dinv_perm, DinvT_perm = {}, {}, {}, {}
                 for name, ps, ls in obs_specs:
                     if dm[name]:
                         continue
-                    Bz = torch.cat([B[name], B[name].new_zeros(
-                        (1,) + tuple(B[name].shape[1:]))])
-                    Bp[name] = Bz[aux[name]["perm"]]
-                    Bpt[name] = Bp[name][:bspec[name][2]].permute(1, 2, 0)
+                    nb = bspec[name][2]
+                    if pre[name]:
+                        Bp[name] = B[name].contiguous()
+                        Bpt[name] = Bt[name][:, :, :nb]
+                    else:
+                        Bz = torch.cat([B[name], B[name].new_zeros(
+                            (1,) + tuple(B[name].shape[1:]))])
+                        Bp[name] = Bz[aux[name]["perm"]]
+                        Bpt[name] = Bp[name][:nb].permute(1, 2, 0)
                     Dinv_perm[name] = seg_take(data, name, Dinv[lm_of[name]])
                     DinvT_perm[name] = Dinv_perm[name].permute(1, 2, 0)
                 ctx.update(Bp=Bp, Bpt=Bpt, Dinv_perm=Dinv_perm,
@@ -359,12 +450,12 @@ class ImplicitSchurSolver:
         def reduced_rhs(ctx, data, lin, aux):
             """``bschur = bp − B · (Dinv bl)``."""
             Dinv, bl = ctx["Dinv"], ctx["bl"]
-            y = {t: torch.einsum("nij,nj->ni", Dinv[t], bl[t])
-                 for t in lm_types if t not in ctx["dm_lm"]}
+            y = _apply_blocks(Dinv, bl, [t for t in lm_types
+                                         if t not in dm_lm])
             bschur = dict(ctx["bp"])
             for name, ps, ls in obs_specs:
                 pt, lt = pt_of[name], lm_of[name]
-                if ctx["dm"][name]:
+                if dm[name]:
                     y_bt = torch.einsum("ijn,jn->in", ctx["Dinv_t"][name],
                                         ctx["bl_bt"][name])
                     rows_t = bucket_up_t(bspec[name], ctx["Bt_s"][name], y_bt)
@@ -388,12 +479,12 @@ class ImplicitSchurSolver:
             inverses of the preconditioner blocks (``schur_jacobi``: the
             reduced system's camera blocks).  Fixed cameras keep their unit
             blocks: their B rows are zero."""
-            diag_blocks = damped_diag(data, lin, lam, pose_types)
+            diag_blocks = _damped_diag(p, data, lin, lam, pose_types)
             sdiag = dict(diag_blocks)
             if use_schur_precond:
                 for name, ps, ls in obs_specs:
                     pt, lt = pt_of[name], lm_of[name]
-                    if ctx["dm"][name]:
+                    if dm[name]:
                         # C = B Dinv Bᵀ per row, dims-major
                         Bts = ctx["Bt_s"][name]
                         dp_ = Bts.shape[0]
@@ -430,31 +521,23 @@ class ImplicitSchurSolver:
 
         def S_vec(ctx, data, lin, diag_blocks, vb):
             """The reduced-system product ``S·v`` in block layout."""
-            out = {t: torch.einsum("nij,nj->ni", diag_blocks[t], vb[t])
-                   for t in pose_types}
+            out = _apply_blocks(diag_blocks, vb, pose_types)
             # pose-pose edges: the off-diagonal Hpp couplings
             for name in pose_edge_types:
-                et = p.edge_types[name]
-                vidx = data.edges[name].vidx
-                Js, W = p.edge_jacs(lin, name), p.edge_weights(lin, name)
-                for i in range(len(Js)):
-                    ti = et.vertex_types[i].name
-                    acc = None
-                    for j in range(len(Js)):
-                        if i == j:
-                            continue
-                        tj = et.vertex_types[j].name
-                        h = torch.einsum("erd,ers,esf,ef->ed", Js[i], W, Js[j],
-                                         vb[tj][vidx[:, j]])
-                        acc = h if acc is None else acc + h
-                    if acc is not None:
-                        out[ti] = out[ti].index_add(0, vidx[:, i], acc)
-            # the Schur term − B Dinv Bᵀ v
+                Js = p.edge_jacs(lin, name)
+                out = _pair_couplings(out, p.edge_types[name],
+                                      data.edges[name].vidx, Js,
+                                      p.edge_weights(lin, name),
+                                      range(len(Js)), vb)
+            # the Schur term − B Dinv Bᵀ v; a landmark type with one
+            # observer edge type stays in bucket order
             if bucketed:
                 for name, ps, ls in obs_specs:
+                    if not sole_obs[name]:
+                        continue
                     pt = pt_of[name]
                     ids = cam_of(data, name, ps)
-                    if ctx["dm"][name]:
+                    if dm[name]:
                         Bts = ctx["Bt_s"][name]
                         u_t = onehot_gather_t(ids, vb[pt])
                         t_ = bucket_down_t(bspec[name], Bts, u_t)
@@ -471,32 +554,42 @@ class ImplicitSchurSolver:
                     rows_t = bucket_up_t(bspec[name], Bpt, s_t)
                     out[pt] = out[pt] - onehot_scatter_add(
                         ids, rows_t.T.contiguous(), p.counts[pt])
+            if not rem:
                 return out
+            # the other batches: Bᵀv summed per landmark in natural order,
+            # Dinv there, B s read back per row
             tl = {t: torch.zeros((p.counts[t], p.vertex_types[t].tangent_dim),
-                                 dtype=dtype, device=dev) for t in lm_types}
-            for name, ps, ls in obs_specs:
-                vidx = data.edges[name].vidx
-                tl[lm_of[name]].index_add_(0, vidx[:, ls], torch.einsum(
-                    "edl,ed->el", ctx["B"][name], vb[pt_of[name]][vidx[:, ps]]))
-            s_ = {t: torch.einsum("nij,nj->ni", ctx["Dinv"][t], tl[t])
-                  for t in lm_types}
-            for name, ps, ls in obs_specs:
-                vidx = data.edges[name].vidx
-                pt = pt_of[name]
-                out[pt] = out[pt].index_add(0, vidx[:, ps], torch.einsum(
-                    "edl,el->ed", ctx["B"][name], s_[lm_of[name]][vidx[:, ls]]),
-                    alpha=-1)
+                                 dtype=dtype, device=dev) for t in rem_lm}
+            for name, ps, ls in rem:
+                pt, lt = pt_of[name], lm_of[name]
+                if bucketed:
+                    u = onehot_gather(cam_of(data, name, ps), vb[pt])
+                    tl[lt] = seg_add(data, name, tl[lt], bucket_down(
+                        bspec[name], ctx["Bp"][name], u))
+                else:
+                    vidx = data.edges[name].vidx
+                    tl[lt].index_add_(0, vidx[:, ls], torch.einsum(
+                        "edl,ed->el", ctx["B"][name], vb[pt][vidx[:, ps]]))
+            s_ = _apply_blocks(ctx["Dinv"], tl, rem_lm)
+            for name, ps, ls in rem:
+                pt, lt = pt_of[name], lm_of[name]
+                if bucketed:
+                    rows = bucket_up(bspec[name], ctx["Bp"][name],
+                                     seg_take(data, name, s_[lt]))
+                    out[pt] = out[pt] - onehot_scatter_add(
+                        cam_of(data, name, ps), rows, p.counts[pt])
+                else:
+                    vidx = data.edges[name].vidx
+                    out[pt] = out[pt].index_add(0, vidx[:, ps], torch.einsum(
+                        "edl,el->ed", ctx["B"][name], s_[lt][vidx[:, ls]]),
+                        alpha=-1)
             return out
 
         def cg(ctx, data, lin, bschur, diag_blocks, minv, aux, carry=None):
-            """PCG on the reduced system; ``(dxp, stats)``.  The stop test
-            ``‖r‖² ≤ max(tol²‖b‖², carry)`` is read on the host once per
-            iteration."""
+            """PCG on the reduced system; ``(dxp, stats)``."""
             G = aux.get("deflate_G") if isinstance(aux, dict) else None
 
             def project(vb):
-                if G is None:
-                    return vb
                 coef = sum(torch.einsum("ndk,nd->k", Gt, vb[t])
                            for t, Gt in G.items())
                 out = dict(vb)
@@ -504,32 +597,10 @@ class ImplicitSchurSolver:
                     out[t] = vb[t] - torch.einsum("ndk,k->nd", Gt, coef)
                 return out
 
-            def precond(rb):
-                return {t: torch.einsum("nij,nj->ni", minv[t], rb[t])
-                        for t in pose_types}
-
-            x = {t: torch.zeros_like(bschur[t]) for t in pose_types}
-            r = project(bschur)
-            z = project(precond(r))
-            pv, rz = z, pdot(r, z)
-            rhs2 = pdot(bschur, bschur)
-            thresh = tol * tol * rhs2
-            if carry is not None:
-                thresh = torch.maximum(thresh, carry.to(thresh.dtype))
-            it = 0
-            while it < max_iter and bool(pdot(r, r) > thresh):
-                Ap = project(S_vec(ctx, data, lin, diag_blocks, pv))
-                alpha = rz / pdot(pv, Ap)
-                x = {t: x[t] + alpha * pv[t] for t in pose_types}
-                r = {t: r[t] - alpha * Ap[t] for t in pose_types}
-                z = project(precond(r))
-                rz2 = pdot(r, z)
-                pv = {t: z[t] + (rz2 / rz) * pv[t] for t in pose_types}
-                rz = rz2
-                it += 1
-            res2 = pdot(r, r)
-            return x, {"cg_iterations": it, "residual2": res2, "rhs2": rhs2,
-                       "carry": 0.5 * res2}
+            return _pcg(lambda v: S_vec(ctx, data, lin, diag_blocks, v),
+                        lambda rb: _apply_blocks(minv, rb, pose_types),
+                        _unprojected if G is None else project, bschur,
+                        pose_types, self.tol, self.max_iter, carry)
 
         def back_substitute(ctx, data, lin, dxp, aux):
             """``dxl = Dinv (bl − Bᵀ dxp)`` joined with ``dxp`` into the
@@ -537,11 +608,11 @@ class ImplicitSchurSolver:
             placement into natural order."""
             bl = ctx["bl"]
             wl = {t: torch.zeros_like(bl[t])
-                  for t in lm_types if t not in ctx["dm_lm"]}
+                  for t in lm_types if t not in dm_lm}
             dxl = {}
             for name, ps, ls in obs_specs:
                 pt, lt = pt_of[name], lm_of[name]
-                if ctx["dm"][name]:
+                if dm[name]:
                     u_t = onehot_gather_t(cam_of(data, name, ps), dxp[pt])
                     t_ = bucket_down_t(bspec[name], ctx["Bt_s"][name], u_t)
                     dxl_t = torch.einsum("ijn,jn->in", ctx["Dinv_t"][name],
@@ -558,35 +629,254 @@ class ImplicitSchurSolver:
                     wl[lt] = wl[lt].index_add(0, vidx[:, ls], torch.einsum(
                         "edl,ed->el", ctx["B"][name], dxp[pt][vidx[:, ps]]))
             for t in lm_types:
-                if t not in ctx["dm_lm"]:
+                if t not in dm_lm:
                     dxl[t] = torch.einsum("nij,nj->ni", ctx["Dinv"][t],
                                           bl[t] - wl[t])
             return p.join_tangent({**dxp, **dxl})
 
+        if not bucketed:
+            form = "rows"
+        elif not all(sole_obs.values()):
+            form = "multi_observer"
+        elif all(dm.values()):
+            form = "dm"
+        else:
+            form = "runtime_bucketed" if not any(pre.values()) else "bucketed"
+        return self._finish(p, dict(
+            landmark_system=landmark_system, reduced_rhs=reduced_rhs,
+            preconditioner=preconditioner, cg=cg,
+            back_substitute=back_substitute), dict(
+            bucketed=bucketed, form=form,
+            buckets={name: len(s[0]) for name, s in bspec.items()},
+            slab_rows={name: s[2] for name, s in bspec.items()}))
+
+    def _setup_general(self, p, lm_types, pose_types, obs_specs,
+                       pose_edge_types, partial):
+        """The exact rows-layout path for the GENERAL marginalization
+        patterns the reference supports (``block_solver.hpp:224-253,
+        315-447``, ``base_multi_edge.h:51,115``):
+
+        * n-ary observation edges — several pose slots per edge, e.g.
+          inverse-depth ``EdgeProjectPSI2UV`` (point psi, observer, anchor;
+          ``types/sba/types_six_dof_expmap.h:183``): every pose-slot pair
+          adds an Hpp coupling, and every pose slot couples to the
+          marginalized slot through its own B block;
+        * per-vertex partial marginalization — a strict subset of a type's
+          vertices is eliminated (the per-edge ``elim`` mask); the retained
+          vertices of that type ride the reduced CG system beside the pose
+          types, pinned to zero on eliminated rows (the ``marg`` mask).
+        """
+        dtype, dev = p.dtype, p.device
+        use_schur_precond = self.precond == "schur_jacobi"
+        cg_types = pose_types + [t for t in lm_types if partial[t]]
+        full_lm = [t for t in lm_types if not partial[t]]
+        if self.deflate_basis:
+            # the analytic gauge bases are built for the standard BAL
+            # camera/landmark split; dropping the request silently would
+            # leave late free-gauge solves grinding the cap
+            raise NotImplementedError(
+                "deflate_basis is not supported on the general "
+                "(n-ary/partial) marginalization path")
+
+        # the masks, in aux: per partial type its marginalized vertices,
+        # per observation batch its rows whose landmark is eliminated
+        marg_np = {t: np.asarray(p.marginalized[t]) for t in lm_types}
+        aux = {"marg": {}, "elim": {}}
+        for t in lm_types:
+            if partial[t]:
+                aux["marg"][t] = torch.as_tensor(
+                    marg_np[t].astype(np.float64), dtype=dtype, device=dev)
+        lt_of = {}
+        for name, pslots, ls in obs_specs:
+            lt = lt_of[name] = p.edge_types[name].vertex_types[ls].name
+            vl = p.data.edges[name].vidx[:, ls].cpu().numpy()
+            elim = marg_np[lt][np.minimum(vl, len(marg_np[lt]) - 1)]
+            aux["elim"][name] = torch.as_tensor(elim.astype(np.float64),
+                                                dtype=dtype, device=dev)
+        self.aux = aux
+        eyes = {t: torch.eye(p.vertex_types[t].tangent_dim, dtype=dtype,
+                             device=dev) for t in p.vertex_types}
+
+        def slot_types(name, slots):
+            et = p.edge_types[name]
+            return [(s, et.vertex_types[s].name) for s in slots]
+
+        def landmark_system(data, lin, lam, aux):
+            """``ctx``: the eliminated-block inverses (damped diagonal on
+            marginalized rows, unit elsewhere — unused there: the
+            back-substitution masks them), one B block per (observation
+            batch, pose slot), and ``b`` split per type."""
+            Dfull = _damped_diag(p, data, lin, lam, lm_types)
+            Dinv = {}
+            for t in lm_types:
+                if partial[t]:
+                    mu = aux["marg"][t][:, None, None]
+                    Dinv[t] = inv_small(Dfull[t] * mu
+                                        + eyes[t] * (1.0 - mu))
+                else:
+                    Dinv[t] = inv_small(Dfull[t])
+            B = {}
+            for name, pslots, ls in obs_specs:
+                Js = p.edge_jacs(lin, name)
+                WJl = torch.einsum("ers,esf->erf", p.edge_weights(lin, name),
+                                   Js[ls])
+                B[name] = {s: torch.einsum("erd,erf->edf", Js[s], WJl)
+                           for s in pslots}
+            ball = p.split_tangent(lin.b)
+            return dict(Dinv=Dinv, B=B, ball=ball,
+                        bl={t: ball[t] for t in lm_types})
+
+        def reduced_rhs(ctx, data, lin, aux):
+            """``bschur`` over the retained system: ``b`` of the kept rows
+            minus ``Σ_s B_s Dinv bl`` over eliminated landmarks."""
+            ball = ctx["ball"]
+            y = _apply_blocks(ctx["Dinv"], ctx["bl"], lm_types)
+            bschur = {t: (ball[t] * (1.0 - aux["marg"][t][:, None])
+                          if t in lm_types else ball[t]) for t in cg_types}
+            for name, pslots, ls in obs_specs:
+                vidx = data.edges[name].vidx
+                el = aux["elim"][name][:, None]
+                yl = y[lt_of[name]][vidx[:, ls]]
+                for s, ts in slot_types(name, pslots):
+                    bschur[ts] = bschur[ts].index_add(
+                        0, vidx[:, s], el * torch.einsum(
+                            "edl,el->ed", ctx["B"][name][s], yl), alpha=-1)
+            return bschur
+
+        def preconditioner(ctx, data, lin, lam, aux):
+            """``(diag_blocks, minv)``: the damped diagonal blocks of the
+            retained system (unit on eliminated rows of a partial type) and
+            the inverses of the preconditioner blocks."""
+            diag_blocks = _damped_diag(p, data, lin, lam, cg_types)
+            for t in cg_types:
+                if t in lm_types:
+                    mu = aux["marg"][t][:, None, None]
+                    diag_blocks[t] = (diag_blocks[t] * (1.0 - mu)
+                                      + eyes[t] * mu)
+            sdiag = dict(diag_blocks)
+            if use_schur_precond:
+                for name, pslots, ls in obs_specs:
+                    vidx = data.edges[name].vidx
+                    el = aux["elim"][name][:, None, None]
+                    Dl = ctx["Dinv"][lt_of[name]][vidx[:, ls]]
+                    for s, ts in slot_types(name, pslots):
+                        Bs = ctx["B"][name][s]
+                        C = torch.einsum("edl,elm,efm->edf", Bs, Dl, Bs)
+                        sdiag[ts] = sdiag[ts].index_add(0, vidx[:, s], el * C,
+                                                        alpha=-1)
+            return diag_blocks, {t: inv_small(sdiag[t]) for t in cg_types}
+
+        def schur_rows(ctx, data, vb):
+            """``Σ_s B_sᵀ v[slot s]`` per observation row, masked to the
+            eliminated rows, summed per landmark: ``{landmark type: (N,
+            dl)}``."""
+            tl = {t: torch.zeros_like(ctx["bl"][t]) for t in lm_types}
+            for name, pslots, ls in obs_specs:
+                vidx = data.edges[name].vidx
+                acc = None
+                for s, ts in slot_types(name, pslots):
+                    h = torch.einsum("edl,ed->el", ctx["B"][name][s],
+                                     vb[ts][vidx[:, s]])
+                    acc = h if acc is None else acc + h
+                if acc is not None:          # unary landmark priors: none
+                    tl[lt_of[name]] = tl[lt_of[name]].index_add(
+                        0, vidx[:, ls], aux["elim"][name][:, None] * acc)
+            return tl
+
+        def S_vec(ctx, data, lin, diag_blocks, vb):
+            """``S·v`` over the retained system."""
+            out = _apply_blocks(diag_blocks, vb, cg_types)
+            for name in pose_edge_types:
+                Js = p.edge_jacs(lin, name)
+                out = _pair_couplings(out, p.edge_types[name],
+                                      data.edges[name].vidx, Js,
+                                      p.edge_weights(lin, name),
+                                      range(len(Js)), vb)
+            for name, pslots, ls in obs_specs:
+                lt = lt_of[name]
+                vidx = data.edges[name].vidx
+                # (a) the pose-slot pair couplings, of every row: they stay
+                # in the retained system whether or not the landmark goes
+                out = _pair_couplings(out, p.edge_types[name], vidx,
+                                      p.edge_jacs(lin, name),
+                                      p.edge_weights(lin, name), pslots, vb)
+                # (b) a retained landmark's couplings (non-eliminated rows)
+                if lt in cg_types:
+                    keep = 1.0 - aux["elim"][name][:, None]
+                    vl = vb[lt][vidx[:, ls]]
+                    accl = None
+                    for s, ts in slot_types(name, pslots):
+                        Bs = ctx["B"][name][s]
+                        out[ts] = out[ts].index_add(0, vidx[:, s], keep * (
+                            torch.einsum("edl,el->ed", Bs, vl)))
+                        hl = torch.einsum("edl,ed->el", Bs, vb[ts][vidx[:, s]])
+                        accl = hl if accl is None else accl + hl
+                    if accl is not None:
+                        out[lt] = out[lt].index_add(0, vidx[:, ls],
+                                                    keep * accl)
+            # (c) the Schur term − Σ_s B_s Dinv (Σ_s' B_s'ᵀ v) over the
+            # eliminated rows
+            s_ = _apply_blocks(ctx["Dinv"], schur_rows(ctx, data, vb),
+                               lm_types)
+            for name, pslots, ls in obs_specs:
+                vidx = data.edges[name].vidx
+                el = aux["elim"][name][:, None]
+                sl = s_[lt_of[name]][vidx[:, ls]]
+                for s, ts in slot_types(name, pslots):
+                    out[ts] = out[ts].index_add(0, vidx[:, s], el * (
+                        torch.einsum("edl,el->ed", ctx["B"][name][s], sl)),
+                        alpha=-1)
+            return out
+
+        def cg(ctx, data, lin, bschur, diag_blocks, minv, aux, carry=None):
+            """PCG on the retained system; ``(dxp, stats)``."""
+            return _pcg(lambda v: S_vec(ctx, data, lin, diag_blocks, v),
+                        lambda rb: _apply_blocks(minv, rb, cg_types),
+                        _unprojected, bschur, cg_types, self.tol,
+                        self.max_iter, carry)
+
+        def back_substitute(ctx, data, lin, dxp, aux):
+            """The eliminated rows ``Dinv (bl − Σ B_sᵀ dxp)`` joined with
+            the retained ones into the full update."""
+            bl, Dinv = ctx["bl"], ctx["Dinv"]
+            wl = schur_rows(ctx, data, dxp)
+            out = {t: torch.einsum("nij,nj->ni", Dinv[t], bl[t] - wl[t])
+                   for t in full_lm}
+            for t in cg_types:
+                if t in lm_types:     # partial: retained + eliminated rows
+                    mu = aux["marg"][t][:, None]
+                    out[t] = dxp[t] * (1.0 - mu) + mu * torch.einsum(
+                        "nij,nj->ni", Dinv[t], bl[t] - wl[t])
+                else:
+                    out[t] = dxp[t]
+            return p.join_tangent(out)
+
+        return self._finish(p, dict(
+            landmark_system=landmark_system, reduced_rhs=reduced_rhs,
+            preconditioner=preconditioner, cg=cg,
+            back_substitute=back_substitute), dict(
+            bucketed=False, form="general", buckets={}, slab_rows={}))
+
+    def _finish(self, problem, parts, layout):
+        """Bind the stages into one solve and reset the carried state."""
         def solve_full(data, lin, lam, aux=(), carry=None):
             """One solve: ``(dx, stats)`` with the CG iteration count and
             the final residual (the reference's iterationsLinearSolver
             statistic, ``g2o/core/batch_stats.h:59``)."""
-            ctx = landmark_system(data, lin, lam, aux)
-            bschur = reduced_rhs(ctx, data, lin, aux)
-            diag_blocks, minv = preconditioner(ctx, data, lin, lam, aux)
-            dxp, stats = cg(ctx, data, lin, bschur, diag_blocks, minv, aux,
-                            carry)
-            return back_substitute(ctx, data, lin, dxp, aux), stats
+            ctx = parts["landmark_system"](data, lin, lam, aux)
+            bschur = parts["reduced_rhs"](ctx, data, lin, aux)
+            diag_blocks, minv = parts["preconditioner"](ctx, data, lin, lam,
+                                                        aux)
+            dxp, stats = parts["cg"](ctx, data, lin, bschur, diag_blocks,
+                                     minv, aux, carry)
+            return parts["back_substitute"](ctx, data, lin, dxp, aux), stats
 
         self._solve_full = solve_full
         # each stage alone, for per-layer timing
-        self._parts = dict(landmark_system=landmark_system,
-                           reduced_rhs=reduced_rhs,
-                           preconditioner=preconditioner, cg=cg,
-                           back_substitute=back_substitute)
-        self._layout = dict(
-            bucketed=bucketed,
-            form=("rows" if not bucketed else
-                  "dm" if all(pre.values()) else "runtime_bucketed"),
-            buckets={name: len(s[0]) for name, s in bspec.items()},
-            slab_rows={name: s[2] for name, s in bspec.items()})
-        self.state0 = (torch.tensor(-1.0, dtype=dtype, device=dev)
+        self._parts = parts
+        self._layout = layout
+        self.state0 = (torch.tensor(-1.0, dtype=problem.dtype,
+                                    device=problem.device)
                        if self.absolute_tolerance else None)
         self._host_state = None
         self._setup_for = problem

@@ -11,7 +11,8 @@ import torch
 def inv_small(A):
     """Inverse of SPD blocks (..., r, r): closed form for r in {1, 2, 3}
     (the same formulas as the JAX package, for exactness parity),
-    Cholesky-based for larger r."""
+    Cholesky-based for larger r (NaN for a block that is not positive
+    definite)."""
     r = A.shape[-1]
     if r == 1:
         return 1.0 / A
@@ -42,7 +43,11 @@ def inv_small(A):
             torch.stack([c02, c12, c22], dim=-1),
         ], dim=-2)
         return M * inv_det[..., None, None]
-    return torch.cholesky_inverse(torch.linalg.cholesky(A))
+    # a block that is not positive definite gives NaN, as the JAX
+    # package's Cholesky does (an LM trial then fails instead of raising)
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.cholesky_inverse(torch.where(info[..., None, None] == 0, L,
+                                              torch.nan))
 
 
 def inv_small_t(At):

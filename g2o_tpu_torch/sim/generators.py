@@ -1,5 +1,5 @@
-"""Synthetic pose graphs — port of ``create_sphere`` and
-``create_manhattan`` of ``g2o_tpu/sim/generators.py``.
+"""Synthetic graphs — port of ``create_sphere``, ``create_manhattan`` and
+``create_ba_scene`` of ``g2o_tpu/sim/generators.py``.
 
 ``create_sphere`` (the reference generator is
 ``g2o/examples/sphere/create_sphere.cpp:40-231``): poses on a sphere,
@@ -14,6 +14,11 @@ the JAX package's.
 loop closures between revisits, noisy measurements and chained initial
 estimates; it draws from ``np.random.default_rng(seed)`` in the JAX
 package's order, so its graph is the JAX package's bit for bit.
+
+``create_ba_scene`` (the reference's ``ba_demo.cpp``): cameras along a
+line looking at a box of points, mono projection edges; also bit for bit
+the JAX package's, with the visibility test and the noise draws made in
+bulk.
 """
 
 from __future__ import annotations
@@ -216,3 +221,84 @@ def create_manhattan(n_poses: int = 3500, step: float = 1.0,
     for (i, j), m in zip(pairs, measurements):
         g.add_edge(EdgeSE2, [i, j], m, info)
     return g
+
+
+def create_ba_scene(n_cameras: int = 15, n_points: int = 300,
+                    focal: float = 1000.0, cx: float = 320.0, cy: float = 240.0,
+                    pixel_noise: float = 1.0, outlier_ratio: float = 0.0,
+                    point_noise: float = 1.0, seed: int = 0):
+    """Synthetic mono BA problem (reference ``ba_demo.cpp``): cameras along a
+    line looking at a box of points.  Returns ``(Graph, {point vid: true
+    point})``.  Cameras 0 and 1 are fixed (gauge + scale); only points seen
+    by at least two cameras are added, as in the reference, each with its
+    observations in camera order."""
+    from g2o_tpu_torch.types.sba import (CAM_PARAM_ID, EdgeProjectXYZ2UV,
+                                         VertexPointXYZ, VertexSE3Expmap)
+
+    rng = np.random.default_rng(seed)
+    true_points = np.stack([
+        rng.uniform(-3, 3, size=n_points),
+        rng.uniform(-0.5, 0.5, size=n_points),
+        rng.uniform(4, 8, size=n_points),
+    ], axis=1)
+
+    g = Graph()
+    g.add_parameter(CAM_PARAM_ID, np.array([focal, cx, cy, 0.0]))
+    # world-to-camera poses (Tcw): R = I, t = -C with C along x
+    cam_t = np.stack([-np.array([i * 0.04 - 1.0, 0.0, 0.0])
+                      for i in range(n_cameras)])
+    for i in range(n_cameras):
+        g.add_vertex(i, VertexSE3Expmap,
+                     np.concatenate([cam_t[i], [0.0, 0.0, 0.0, 1.0]]),
+                     fixed=(i < 2))
+
+    # every (point, camera) projection at once; R = I, so R p + t = p + t
+    pc = true_points[:, None, :] + cam_t[None, :, :]
+    u = focal * pc[..., 0] / pc[..., 2] + cx
+    v = focal * pc[..., 1] / pc[..., 2] + cy
+    seen = ((pc[..., 2] > 0) & (u >= 0) & (u < 2 * cx)
+            & (v >= 0) & (v < 2 * cy))
+    kept = np.flatnonzero(seen.sum(axis=1) >= 2)
+
+    if outlier_ratio > 0:
+        # the outlier draws interleave uniform and normal draws per
+        # observation: drawn one by one, in the JAX package's order
+        init, obs = [], []
+        for k in kept:
+            init.append(true_points[k] + rng.normal(scale=point_noise,
+                                                    size=3))
+            for i in np.flatnonzero(seen[k]):
+                if rng.random() < outlier_ratio:
+                    obs.append(np.array([rng.uniform(0, 2 * cx),
+                                         rng.uniform(0, 2 * cy)]))
+                else:
+                    obs.append(np.array([u[k, i], v[k, i]])
+                               + rng.normal(scale=pixel_noise, size=2))
+        init, obs = np.array(init), np.array(obs)
+    else:
+        # per kept point: 3 normals for its initial estimate, then 2 per
+        # observation — one standard-normal stream, each draw scaled as
+        # Generator.normal scales it (loc + scale * z)
+        deg = seen[kept].sum(axis=1)
+        z = rng.standard_normal(int(np.sum(3 + 2 * deg)))
+        start = np.concatenate([[0], np.cumsum(3 + 2 * deg)[:-1]])
+        pidx = start[:, None] + np.arange(3)
+        init = true_points[kept] + (0.0 + point_noise * z[pidx])
+        oidx = np.repeat(start + 3, deg) + 2 * (
+            np.arange(int(deg.sum())) - np.repeat(np.cumsum(deg) - deg, deg))
+        kk, ii = np.nonzero(seen[kept])
+        obs = np.stack([u[kept[kk], ii], v[kept[kk], ii]], axis=1) + (
+            0.0 + pixel_noise * z[oidx[:, None] + np.arange(2)])
+
+    truth_by_vid = {}
+    info = np.eye(2)
+    n_obs = 0
+    for j, k in enumerate(kept):
+        vid = n_cameras + j
+        g.add_vertex(vid, VertexPointXYZ, init[j], marginalized=True)
+        truth_by_vid[vid] = true_points[k]
+        for i in np.flatnonzero(seen[k]):
+            g.add_edge(EdgeProjectXYZ2UV, [vid, int(i)], obs[n_obs], info,
+                       param_id=CAM_PARAM_ID)
+            n_obs += 1
+    return g, truth_by_vid

@@ -1,3 +1,3 @@
 """Type libraries; importing this package registers their ``.g2o`` tags."""
 
-from g2o_tpu_torch.types import bal, slam2d, slam3d  # noqa: F401
+from g2o_tpu_torch.types import bal, sba, slam2d, slam3d  # noqa: F401

@@ -1,8 +1,9 @@
 """The port on a CUDA card: the K1/K2/K3/K4 kernels and the gather and
 segment-sum kernels (K5–K10) against their plain PyTorch versions, and the
 PCG (per-solve and, on a manhattan graph, ``every_k``), supernodal, host
-Cholesky, explicit and implicit Schur (BAL) paths on the card against the
-same paths on the CPU.
+Cholesky, explicit and implicit Schur (BAL; and the sba problems of
+``chip_smoke.py`` on the general path and the bucketed multi-observer
+branch) paths on the card against the same paths on the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
 This file imports neither JAX nor ``g2o_tpu``, so it also runs on a machine
@@ -29,8 +30,8 @@ from g2o_tpu_torch.io import bal
 from g2o_tpu_torch.ops import chol_kernels, onehot, segment_kernels
 from g2o_tpu_torch.sim.generators import create_manhattan, create_sphere
 
-C20 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "data", "bal_cache", "bal-C20-P800-K5-N1-S0.txt.gz")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+C20 = os.path.join(ROOT, "data", "bal_cache", "bal-C20-P800-K5-N1-S0.txt.gz")
 
 
 def _need_card():
@@ -375,6 +376,10 @@ _ONEHOT_CASES = [
     (35000, 49, 81, 0, 49, 0), (198088, 120, 9, 0, 120, 0),
     (198088, 120, 81, 0, 120, 0), (900000, 800, 9, 0, 800, 0),
     (900000, 800, 81, 0, 800, 0),
+    # the mixed sba path's stereo / mono slabs: K7 (49, 6) -> (E_pad, 6),
+    # K8 at S*D = 294 (one launch) and 1764 (memset + kernel)
+    (113000, 49, 6, 0, 49, 0), (113000, 49, 36, 0, 49, 0),
+    (115075, 49, 36, 0, 49, 0),
 ]
 
 
@@ -463,6 +468,8 @@ _DIMS_MAJOR_MAX_SEGMENTS = 8192
     (9000, 7282, 9, 2, 2),      # past _DIMS_MAJOR_MAX_CELLS
     (9000, 8193, 1, 2, 2),      # past _DIMS_MAJOR_MAX_SEGMENTS
     (30000, 70000, 9, 2, 2),    # past a shared column: memset + kernel
+    (113000, 49, 6, 1, 1),      # the mixed sba path's CG-body sums
+    (113000, 49, 36, 2, 1),     # its preconditioner blocks: memset + kernel
 ])
 def test_onehot_segment_sum_device_operations_on_card(n, s, d, ops, ops_t,
                                                       dtype):
@@ -783,3 +790,41 @@ def test_ba_schur_on_card_matches_cpu():
         chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
     assert launches == [0, trials[1]]
     np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
+
+
+def _sba_graphs():
+    """chip_smoke.py's three sba problems at 12 cameras and 150 drawn
+    points."""
+    import sys
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    return chip_smoke.sba_graphs(dict(n_cameras=12, n_points=150, seed=0))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["inverse_depth", "partial", "mixed"])
+def test_sba_paths_on_card_match_cpu(path):
+    """8 LM iterations, float64, of chip_smoke.py's sba problems at a small
+    size: the general path (inverse depth: 3-ary edges, free anchors;
+    partial marginalization) and the bucketed multi-observer branch (mixed
+    mono and stereo: K7/K8 on the card, never on the CPU) give the CPU's
+    trajectory."""
+    _need_card()
+    g, bucket = _sba_graphs()[path]
+    wrappers = (onehot.onehot_gather, onehot.onehot_scatter_add)
+    chis, launches = [], []
+    for device in ("cpu", "cuda"):
+        p = g.compile(dtype=torch.float64, device=device,
+                      bucket_landmarks=bucket)
+        before = [w.launches for w in wrappers]
+        s = g2o_tpu_torch.ImplicitSchurSolver(max_iter=150, tol=1e-6)
+        res = g2o_tpu_torch.optimize_fused(p, s, 8)
+        assert s._layout["form"] == ("multi_observer" if bucket
+                                     else "general")
+        launches.append([w.launches - b for w, b in zip(wrappers, before)])
+        chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
+    assert launches[0] == [0, 0]
+    if bucket:
+        assert min(launches[1]) > 0
+    np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
+    assert chis[1][-1] < 0.1 * chis[1][0]

@@ -310,12 +310,25 @@ def test_setup_is_cached_and_options_are_checked(linearized):
 
 
 def test_general_path_raises(small_text):
-    """Partial marginalization needs the general path: it raises, naming
-    the roadmap item; so does a graph without marginalized vertices."""
+    """Partial marginalization takes the general path, whose step equals
+    the JAX package's; a graph without marginalized vertices raises."""
+    from g2o_tpu.io import bal as jbal_io
+
+    jg = jbal_io.load_bal(io.StringIO(small_text))
     g = tbal.load_bal(io.StringIO(small_text))
-    g.set_marginalized(8, False)              # the first point
-    with pytest.raises(NotImplementedError, match="A.6"):
-        g2o_tpu_torch.ImplicitSchurSolver().setup(g.compile(device="cpu"))
+    for gr in (jg, g):
+        gr.set_marginalized(8, False)         # the first point
+    jp, tp = jg.compile(), g.compile(device="cpu")
+    kw = dict(max_iter=500, tol=1e-13, precond="schur_jacobi")
+    js, ts = JImpl(**kw).setup(jp), g2o_tpu_torch.ImplicitSchurSolver(
+        **kw).setup(tp)
+    assert ts._layout["form"] == "general"
+    jdx, _ = js._solve_full_jit(jp.data, jp.linearize_jit(jp.data,
+                                                          jp.estimates),
+                                1e-3, js.aux)
+    tdx, _ = ts._solve_full(tp.data, tp.linearize_fn(tp.data, tp.estimates),
+                            1e-3, ts.aux)
+    _close(tdx, jdx, 1e-8)
     for vid in range(8, 8 + 120):
         g.set_marginalized(vid, False)
     with pytest.raises(ValueError, match="no marginalized"):

@@ -202,7 +202,7 @@ def test_port_imports_neither_jax_nor_g2o_tpu():
             "g2o_tpu_torch.core.solvers.schur, g2o_tpu_torch.ops.onehot, "
             "g2o_tpu_torch.ops.bucketed, "
             "g2o_tpu_torch.core.solvers.schur_implicit, "
-            "g2o_tpu_torch.types.slam2d, "
+            "g2o_tpu_torch.types.slam2d, g2o_tpu_torch.types.sba, "
             "g2o_tpu_torch.core.solvers.host_chol, "
             "g2o_tpu_torch.core.optimizer, g2o_tpu_torch.core.lm_fused, "
             "chip_smoke")
