@@ -114,6 +114,33 @@ exits non-zero without printing a result:
     also the example's median world-point error; mixed also the f32 run at
     ``layout="rows"``).
 
+11. the rest of the public API on the card: sphere2500 with vertex 0
+    fixed (the reference CLI's gauge for a file without a FIX line),
+    Huber 1.0 —
+    ``Dogleg()`` over ``SupernodalCholeskySolver()`` through
+    ``SparseOptimizer``, 50 iterations in f64 and in f32 (every chi2
+    finite, the f32 final within 1% of the f64 final, K1/K2/K3 launched in
+    the f32 run; the GN / SD / blend step counts; a 5-iteration trace),
+    ``[main_path_dogleg]``; ``FusedLevenbergMarquardt`` over
+    ``PCGSolver(precond="chunk2")`` for 5 iterations, equal to
+    ``optimize_fused``'s first five chi2 within rtol 1e-6
+    (``[fused_lm]``); ``SparseCholeskySolver`` in ``optimize_fused`` for 50
+    f32 iterations (chi2 ≤ the phase 4 bound) and one f64 step at its final
+    λ from the initial estimates against ``SupernodalCholeskySolver``'s
+    (≤ 1e-8,
+    ``[main_path_sparse_chol]``, ``[check_sparse_chol]``); then
+    ``CGLSSolver(max_iter=200, eta=1e-4)`` on ladybug loaded with
+    ``bucket_landmarks=True`` for 10 f32 iterations (chi2 ≤ the reference
+    g2o's PCG chi2 after 10, +1%, and K5/K6 launched at least once per CG
+    iteration, ``[main_path_cgls]``) and one f64 CGLS step (``eta=1e-16``)
+    at λ = 1e-2 on each phase 10 problem against ``DenseSolver``
+    (≤ 1e-6, ``[check_cgls_<path>]``); and the marginals: on sphere2500
+    in f64 at λ = 1e-5 the ``takahashi`` blocks of all 2500 vertices, the
+    ``sparse`` blocks of 16 vertices against them and one sparse cross
+    block against the dense route's (≤ 1e-8); on ladybug in f64 the
+    ``schur`` blocks of 4 cameras and 4 points against the ``dense``
+    route's (≤ 1e-8), ``[marginals]``.
+
 Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
 untraced run's wall time per λ-trial, kernel launches per λ-trial and the
@@ -241,6 +268,25 @@ KERNELS = ("chol_batched", "solve_lower_batched", "solve_upper_batched",
 # or below it) and its gn_var fixed point (phase 3, +0.25 as bench.py)
 MANHATTAN_LM = 9146.503719
 MANHATTAN_GN = 9116.756453
+# phase 11: Dogleg's iterations and trace; CGLS as the JAX package's
+# defaults on ladybug and for the f64 step against DenseSolver on the
+# phase 10 problems (to the rounding floor); the sparse Cholesky run; the
+# marginals' damping, the sphere2500 vertices of the sparse route and the
+# ladybug vertices of the schur route
+DOGLEG_ITERS = 50
+CGLS_SOLVER = dict(max_iter=200, eta=1e-4)
+CGLS_CHECK_SOLVER = dict(max_iter=2000, eta=1e-16)
+CGLS_CHECK_LAM = 1e-2
+# the phase 10 problem whose f64 CGLS step is held to 1e-6 of the dense
+# step: the bucketed one, whose camera slot runs K5/K6 in the CG loop.  The
+# other two print theirs: η = 1e-16 stops CG at an error set by each
+# system's conditioning (on an NVIDIA H100: 1.9e-7 on inverse depth,
+# 1.3e-6 on partial), as the JAX package's CGLS does
+CGLS_CHECK_PATH = "mixed"
+CGLS_BOUND = 48790.33 * 1.01
+MARGINAL_LAM = 1e-5
+MARGINAL_SPARSE_VERTICES = 16
+MARGINAL_BA_VERTICES = 4
 # the shape each kernel's entry in the JSON line reports
 PRIMARY = {"chol_batched": (1, 960, 960),
            "solve_lower_batched": (1, 960, 960),
@@ -1643,6 +1689,359 @@ def sba_path_phase(torch, g2o, wrappers, sba):
     return by_path
 
 
+def load_sphere_fixed(torch):
+    """sphere2500 with Huber 1.0 and vertex 0 fixed — the reference CLI's
+    gauge for a file without a FIX line (Dogleg's Gauss-Newton step solves
+    at λ = 0, where the free gauge leaves H singular): ``{dtype name:
+    (problem, initial estimates)}`` in f64 and f32 on the card."""
+    from g2o_tpu_torch.io import g2o_format
+
+    t0 = time.perf_counter()
+    g = g2o_format.load(DATASET)
+    g.set_robust_kernel("Huber", 1.0)
+    g.set_fixed(0, True)
+    out = {}
+    for dt in ("float64", "float32"):
+        p = g.compile(dtype=getattr(torch, dt), device="cuda")
+        out[dt] = (p, {t: v.clone() for t, v in p.estimates.items()})
+    torch.cuda.synchronize()
+    phase("load_sphere_fixed", fixed_vertex=0, gauge_freedom=out[
+        "float32"][0].gauge_freedom(),
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    return out
+
+
+def _reset(p, est0):
+    p.set_estimates({t: v.clone() for t, v in est0.items()})
+
+
+def _dogleg_run(torch, g2o, p, est0, iters):
+    """``iters`` Dogleg iterations from ``est0`` over a fresh supernodal
+    solver: ``(optimizer, step kinds, wall s)``."""
+    _reset(p, est0)
+    opt = g2o.SparseOptimizer(p, algorithm=g2o.Dogleg(),
+                              solver=g2o.SupernodalCholeskySolver())
+    kinds = []
+    opt.post_iteration_actions.append(
+        lambda o, it: kinds.append(o.algorithm._last_step))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.optimize(iters)
+    torch.cuda.synchronize()
+    return opt, kinds, time.perf_counter() - t0
+
+
+def dogleg_phase(torch, g2o, wrappers, sphere):
+    """Dogleg over the supernodal solver, f64 then f32 (the main path:
+    counts reset just before it); returns the launch counts of the f32
+    run."""
+    finals = {}
+    for dt in ("float64", "float32"):
+        p, est0 = sphere[dt]
+        _dogleg_run(torch, g2o, p, est0, 2)                 # warm-up
+        if dt == "float32":
+            for w in wrappers.values():
+                w.launches = 0
+        opt, kinds, wall = _dogleg_run(torch, g2o, p, est0, DOGLEG_ITERS)
+        launches = _launches(wrappers)
+        stats = opt.batch_statistics
+        n = len(stats)
+        chis = [s.chi2 for s in stats] + [opt.chi2()]
+        trials = sum(s.levenberg_iterations for s in stats)
+        finals[dt] = chis[-1]
+        facts = dict(dtype=dt, iterations_requested=DOGLEG_ITERS,
+                     iterations=n,
+                     ms_per_iteration=f"{wall * 1e3 / max(n, 1):.3f}",
+                     trials_per_iteration=f"{trials / max(n, 1):.3f}",
+                     steps_gn=kinds.count("GN"), steps_sd=kinds.count("SD"),
+                     steps_dl=kinds.count("DL"),
+                     chi2_0=f"{chis[0]:.4f}",
+                     chi2_10=f"{chis[min(10, n)]:.4f}",
+                     chi2_final=f"{chis[-1]:.4f}",
+                     delta_final=f"{opt.algorithm.delta:.6g}",
+                     reference_lm_bound=f"{CHI2_BOUND:.2f}",
+                     reaches_reference_lm_bound=chis[-1] <= CHI2_BOUND,
+                     wall_s=f"{wall:.3f}")
+        if dt == "float32":
+            facts.update(f64_chi2_final=f"{finals['float64']:.4f}",
+                         **{f"launches_{k}": v for k, v in launches.items()})
+        phase("main_path_dogleg" if dt == "float32"
+              else "main_path_dogleg_f64", **facts)
+        if not all(math.isfinite(c) for c in chis):
+            raise RuntimeError(f"dogleg {dt}: non-finite chi2 {chis}")
+    if abs(finals["float32"] - finals["float64"]) > 0.01 * finals["float64"]:
+        raise RuntimeError(f"dogleg: f32 final chi2 {finals['float32']} not "
+                           f"within 1% of the f64 run's {finals['float64']}")
+    if any(launches[k] < 1 for k in KERNELS[:3]):
+        raise RuntimeError(f"dogleg: K1/K2/K3 not all launched: {launches}")
+    # the busy share over 5 traced iterations of the f32 run
+    p, est0 = sphere["float32"]
+    ms = wall * 1e3 / max(n, 1)
+    (opt, _, _), kern, n_launch = _profile(
+        lambda: _dogleg_run(torch, g2o, p, est0, 5))
+    n5 = max(len(opt.batch_statistics), 1)
+    dev_ms = sum(k[0] for k in kern) / 1e3 / n5
+    phase("trace_main_path_dogleg", iterations=n5,
+          device_ms_per_iteration=f"{dev_ms:.3f}",
+          untraced_ms_per_iteration=f"{ms:.3f}",
+          device_busy_share=f"{dev_ms / ms:.4f}",
+          kernel_launches_per_iteration=f"{n_launch / n5:.1f}",
+          top=_top(kern))
+    if not kern:
+        raise RuntimeError("the dogleg trace shows no device time")
+    return launches
+
+
+def fused_lm_phase(torch, g2o, wrappers, sphere):
+    """``FusedLevenbergMarquardt`` through ``SparseOptimizer`` against
+    ``optimize_fused`` on the same solver settings, 5 iterations each from
+    the same start (the first counts the main path's launches).  Both run
+    with PyTorch's deterministic algorithms: ``index_add_`` on the card
+    otherwise adds in a run-dependent order, and two f32 runs of one
+    algorithm then part by ~1e-5 within five iterations."""
+    p, est0 = sphere["float32"]
+    kw = dict(max_iter=50, tol=1e-1, precond="chunk2", chunk_size=16)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _fused_lm_pair(torch, g2o, wrappers, p, est0, kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _fused_lm_pair(torch, g2o, wrappers, p, est0, kw):
+    _reset(p, est0)
+    for w in wrappers.values():
+        w.launches = 0
+    opt = g2o.SparseOptimizer(p, algorithm=g2o.FusedLevenbergMarquardt(),
+                              solver=g2o.PCGSolver(**kw))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.optimize(5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(wrappers)
+    chis = [s.chi2 for s in opt.batch_statistics] + [opt.current_chi2]
+    _reset(p, est0)
+    res = g2o.optimize_fused(p, g2o.PCGSolver(**kw), 5)
+    ref = res["chi2_per_iteration"] + [res["chi2_final"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(chis, ref))
+    phase("fused_lm", iterations=len(opt.batch_statistics),
+          ms_per_iteration=f"{wall * 1e3 / 5:.3f}",
+          chi2=",".join(f"{c:.6f}" for c in chis),
+          optimize_fused_chi2=",".join(f"{c:.6f}" for c in ref),
+          max_rel_diff=f"{rel:.3e}", limit="1e-6",
+          **{f"launches_{k}": v for k, v in launches.items()})
+    if len(chis) != len(ref) or not rel <= 1e-6:
+        raise RuntimeError(f"FusedLevenbergMarquardt {chis} against "
+                           f"optimize_fused {ref}")
+    return launches
+
+
+def sparse_chol_phase(torch, g2o, wrappers, sphere):
+    """``SparseCholeskySolver`` on the fixed sphere2500: 50 f32 LM
+    iterations (``_run_lm``), then one f64 step at the run's final λ
+    against ``SupernodalCholeskySolver``'s, at the f64 problem's initial
+    estimates (as phase 10's f64 checks).  At the converged estimates,
+    where the final λ is ~1e-16 of H's scale, the two direct solvers part
+    by ~1e-8 on an NVIDIA H100: the optimum's conditioning times the
+    rounding of a factor without refinement (the supernodal solver
+    refines), which that point cannot hold steadily below a 1e-8 bar."""
+    p, est0 = sphere["float32"]
+    sc = g2o.SparseCholeskySolver()
+    t0 = time.perf_counter()
+    sc.setup(p)
+    torch.cuda.synchronize()
+    levels = sc.aux["levels"]
+    phase("setup_sparse_chol", seconds=f"{time.perf_counter() - t0:.3f}",
+          blocks=sc._n_blocks, off_diagonal_blocks=sc._sched["nnz"],
+          levels=len(levels),
+          updates=sum(int(lv["u_dst"].numel()) for lv in levels))
+    res, launches = _run_lm(torch, g2o, wrappers, p, est0, sc,
+                            "main_path_sparse_chol", need=())
+    p64, est64 = sphere["float64"]
+    final = p64.estimates
+    _reset(p64, est64)
+    lin = p64.linearize_fn(p64.data, p64.estimates)
+    lam = res["lambda_final"]
+    sc64 = g2o.SparseCholeskySolver().setup(p64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dx = sc64.solve(p64.data, lin, lam)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    dx_sn = g2o.SupernodalCholeskySolver().setup(p64).solve(p64.data, lin,
+                                                           lam)
+    rel = float((dx - dx_sn).norm() / dx_sn.norm())
+    p64.set_estimates(final)
+    trials = max(sum(res["trials_per_iteration"]), 1)
+    phase("check_sparse_chol", lam=f"{lam:.6e}", f64_solve_ms=f"{ms:.3f}",
+          rel_diff_to_supernodal=f"{rel:.3e}", limit="1e-8",
+          levels=len(levels), lm_trials=trials)
+    if not rel <= 1e-8:
+        raise RuntimeError(f"sparse Cholesky f64 step {rel} from the "
+                           f"supernodal step")
+    return launches
+
+
+def cgls_phase(torch, g2o, wrappers, implicit, sba):
+    """CGLS on the dims-major ladybug problem (the main path: 10 f32
+    iterations), then one f64 step per phase 10 problem against
+    ``DenseSolver``."""
+    p, _, est0 = implicit[""]
+    solver = g2o.CGLSSolver(**CGLS_SOLVER)
+    watch = {"k5": ("gather_t_kernel",),
+             "k6": ("segment_sum_t_kernel", "scatter_add_kernel")}
+    _reset(p, est0)
+    g2o.optimize_fused(p, solver, 2)                 # warm-up
+    _reset(p, est0)
+    for w in wrappers.values():
+        w.launches = 0
+    solver.cg_iterations = solver.solves = 0
+    res = g2o.optimize_fused(p, solver, 10)
+    launches = _launches(wrappers)
+    cg, solves = solver.cg_iterations, solver.solves
+    chis = res["chi2_per_iteration"] + [res["chi2_final"]]
+    n = res["iterations"]
+    trials = max(sum(res["trials_per_iteration"]), 1)
+    ms = res["wall_s"] * 1e3 / trials
+    crossing = _first_at_or_below(chis, CGLS_BOUND)
+    phase("main_path_cgls", iterations=n, lm_trials=trials,
+          ms_per_lambda_trial=f"{ms:.3f}",
+          ms_per_lm_iteration=f"{res['wall_s'] * 1e3 / max(n, 1):.3f}",
+          cg_iterations_per_solve=f"{cg / max(solves, 1):.2f}",
+          cg_iterations_total=cg, chi2_0=f"{chis[0]:.4f}",
+          chi2_final=f"{res['chi2_final']:.4f}", bound=f"{CGLS_BOUND:.2f}",
+          bound_crossed_at_iteration=crossing,
+          **{f"{k}_per_lambda_trial": f"{launches[k] / trials:.2f}"
+             for k in ONEHOT})
+    if not all(math.isfinite(c) for c in chis):
+        raise RuntimeError(f"CGLS: non-finite chi2 {chis}")
+    if (launches["onehot_gather_t"] < cg
+            or launches["onehot_scatter_add_t"] < cg):
+        raise RuntimeError(f"CGLS: K5/K6 launched fewer times than the "
+                           f"{cg} CG iterations: {launches}")
+    if not res["chi2_final"] <= CGLS_BOUND:
+        raise RuntimeError(f"CGLS: chi2 {res['chi2_final']} after {n} "
+                           f"iterations; need <= {CGLS_BOUND}")
+    trace(g2o, p, est0, solver, "main_path_cgls", ms, iters=3, watch=watch)
+    for path in SBA_PATHS:
+        p64 = sba[path]["p64"]
+        _reset(p64, sba[path]["est64"])
+        lin = p64.linearize_fn(p64.data, p64.estimates)
+        dx_d = g2o.DenseSolver().setup(p64).solve(p64.data, lin,
+                                                  CGLS_CHECK_LAM)
+        torch.cuda.empty_cache()
+        s = g2o.CGLSSolver(**CGLS_CHECK_SOLVER).setup(p64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dx = s.solve(p64.data, lin, CGLS_CHECK_LAM)
+        torch.cuda.synchronize()
+        rel = float((dx - dx_d).norm() / dx_d.norm())
+        barred = path == CGLS_CHECK_PATH
+        phase(f"check_cgls_{path}", lam=CGLS_CHECK_LAM,
+              eta=CGLS_CHECK_SOLVER["eta"], cg_iterations=s.cg_iterations,
+              cgls_ms=f"{(time.perf_counter() - t0) * 1e3:.1f}",
+              rel_diff_to_dense=f"{rel:.3e}",
+              limit="1e-6" if barred else "none",
+              bucketed=bool(p64.bucket_specs))
+        if barred and not rel <= 1e-6:
+            raise RuntimeError(f"CGLS f64 step on {path}: {rel} from "
+                               f"DenseSolver's")
+    return launches
+
+
+def _block_rel(a, b, vids):
+    """max over ``vids`` of max|a − b| / max|b| per block."""
+    return max(float(np.abs(a[v] - b[v]).max() / np.abs(b[v]).max())
+               for v in vids)
+
+
+def marginals_phase(torch, g2o, sphere):
+    """The four marginal routes on the card: takahashi, sparse and the
+    cross block on sphere2500 (f64), schur against dense on ladybug
+    (f64)."""
+    import io as _io
+
+    from g2o_tpu_torch.core.marginals import (compute_cross_marginals,
+                                              compute_marginals)
+    from g2o_tpu_torch.core.optimizer import _max_abs_diag
+    from g2o_tpu_torch.io import bal
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    p, est0 = sphere["float64"]
+    _reset(p, est0)
+    vids = sorted(p.vid_index)
+    tk, tk_ms = timed(lambda: compute_marginals(
+        p, vids, lam=MARGINAL_LAM, method="takahashi"))
+    some = [vids[int(i)] for i in np.linspace(
+        1, len(vids) - 1, MARGINAL_SPARSE_VERTICES)]
+    sp, sp_ms = timed(lambda: compute_marginals(
+        p, some, lam=MARGINAL_LAM, method="sparse"))
+    a, b = some[3], some[4]
+    cs, cs_ms = timed(lambda: compute_cross_marginals(
+        p, a, b, lam=MARGINAL_LAM, method="sparse"))
+    cd, cd_ms = timed(lambda: compute_cross_marginals(
+        p, a, b, lam=MARGINAL_LAM, method="dense"))
+    torch.cuda.empty_cache()
+    rel_sp = _block_rel(sp, tk, some)
+    rel_cross = float(np.abs(cs - cd).max() / np.abs(cd).max())
+    finite = all(np.isfinite(tk[v]).all() for v in vids)
+
+    with gzip.open(os.path.join(BAL, LADYBUG), "rt") as fh:
+        pb = bal.load_bal_problem(_io.StringIO(fh.read()),
+                                  fix_first_camera=False,
+                                  dtype=torch.float64)
+    lin = pb.linearize_fn(pb.data, pb.estimates)
+    lam_ba = 1e-5 * float(_max_abs_diag(pb, lin))
+    by_type = {}
+    for vid, (t, i) in pb.vid_index.items():
+        by_type.setdefault(t, []).append(vid)
+    ba_vids = [v for t in ("VERTEX_CAMERA_BAL", "VERTEX_TRACKXYZ")
+               for v in sorted(by_type[t])[::len(by_type[t])
+                                           // MARGINAL_BA_VERTICES]
+               [:MARGINAL_BA_VERTICES]]
+    sc, sc_ms = timed(lambda: compute_marginals(pb, ba_vids, lam=lam_ba,
+                                                method="schur"))
+    dn, dn_ms = timed(lambda: compute_marginals(pb, ba_vids, lam=lam_ba,
+                                                method="dense"))
+    torch.cuda.empty_cache()
+    rel_ba = _block_rel(sc, dn, ba_vids)
+    phase("marginals", sphere_lam=MARGINAL_LAM,
+          takahashi_blocks=len(vids), takahashi_ms=f"{tk_ms:.1f}",
+          sparse_blocks=len(some), sparse_ms=f"{sp_ms:.1f}",
+          sparse_rel_diff_to_takahashi=f"{rel_sp:.3e}",
+          cross_pair=f"{a}-{b}", cross_sparse_ms=f"{cs_ms:.1f}",
+          cross_dense_ms=f"{cd_ms:.1f}",
+          cross_rel_diff_to_dense=f"{rel_cross:.3e}",
+          ladybug_lam=f"{lam_ba:.6e}", ladybug_blocks=len(ba_vids),
+          schur_ms=f"{sc_ms:.1f}", dense_ms=f"{dn_ms:.1f}",
+          dense_dim=pb.total_dim,
+          schur_rel_diff_to_dense=f"{rel_ba:.3e}", limit="1e-8")
+    if not (finite and rel_sp <= 1e-8 and rel_cross <= 1e-8
+            and rel_ba <= 1e-8):
+        raise RuntimeError("the marginal routes disagree")
+
+
+def api_phase(torch, g2o, wrappers, implicit, sba):
+    """Phase 11; returns the launch counts of each of its main paths."""
+    sphere = load_sphere_fixed(torch)
+    by_path = {"main_path_dogleg": dogleg_phase(torch, g2o, wrappers,
+                                                sphere),
+               "fused_lm": fused_lm_phase(torch, g2o, wrappers, sphere),
+               "main_path_sparse_chol": sparse_chol_phase(
+                   torch, g2o, wrappers, sphere),
+               "main_path_cgls": cgls_phase(torch, g2o, wrappers, implicit,
+                                            sba)}
+    marginals_phase(torch, g2o, sphere)
+    return by_path
+
+
 def main():
     import torch
 
@@ -1677,6 +2076,7 @@ def main():
     by_path.update(implicit_main_path_phase(torch, g2o, wrappers, implicit))
     by_path.update(manhattan_path_phase(torch, g2o, wrappers))
     by_path.update(sba_path_phase(torch, g2o, wrappers, sba))
+    by_path.update(api_phase(torch, g2o, wrappers, implicit, sba))
     # a new kernel's launches are its wrappers' launches
     for counts in by_path.values():
         for k, ws in NEW_KERNELS.items():

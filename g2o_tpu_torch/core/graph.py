@@ -68,6 +68,9 @@ class Graph:
                                          bool(marginalized))
         return vid
 
+    def has_vertex(self, vid: int) -> bool:
+        return vid in self._vertices
+
     def vertex(self, vid: int) -> _VertexRec:
         return self._vertices[vid]
 
@@ -76,6 +79,25 @@ class Graph:
 
     def set_marginalized(self, vid: int, marginalized: bool = True):
         self._vertices[vid].marginalized = bool(marginalized)
+
+    def set_estimate(self, vid: int, estimate):
+        rec = self._vertices[vid]
+        est = np.asarray(estimate, dtype=np.float64).reshape(-1)
+        if est.shape[0] != rec.vtype.rep_dim:
+            raise ValueError(
+                f"vertex {vid}: expected state of dim {rec.vtype.rep_dim} "
+                f"for {rec.vtype.name}, got {est.shape[0]}")
+        rec.estimate = est
+
+    def remove_vertex(self, vid: int):
+        """Remove a vertex and every edge incident to it (reference
+        ``HyperGraph::removeVertex`` detaches edges); False when there is
+        no such vertex."""
+        if vid not in self._vertices:
+            return False
+        self._edges = [e for e in self._edges if vid not in e.vids]
+        del self._vertices[vid]
+        return True
 
     @property
     def num_vertices(self):
@@ -161,6 +183,47 @@ class Graph:
             if etype is None or e.etype.name == etype:
                 e.kernel = int(kernel)
                 e.delta = float(delta)
+
+    # -- sanity checks -----------------------------------------------------
+
+    def verify_information_matrices(self, verbose: bool = False) -> bool:
+        """Check every edge's information matrix is symmetric positive
+        (semi)definite — reference ``verifyInformationMatrices``
+        (``g2o/core/optimizable_graph.h:630``)."""
+        ok = True
+        for i, e in enumerate(self._edges):
+            info = e.information
+            if not np.allclose(info, info.T, atol=1e-9):
+                ok = False
+                if verbose:
+                    print(f"edge {i} ({e.etype.name} {e.vids}): information "
+                          f"matrix not symmetric")
+                continue
+            ev = np.linalg.eigvalsh(info)
+            if ev.min() < -1e-9:
+                ok = False
+                if verbose:
+                    print(f"edge {i} ({e.etype.name} {e.vids}): information "
+                          f"matrix not PSD (min eig {ev.min():.3g})")
+        return ok
+
+    def check_finite(self, verbose: bool = False) -> bool:
+        """NaN/Inf check over estimates, measurements and information
+        matrices — the debug checks of the reference
+        (``sparse_optimizer.cpp:80-88,252-263``)."""
+        ok = True
+        for vid, rec in self._vertices.items():
+            if not np.isfinite(rec.estimate).all():
+                ok = False
+                if verbose:
+                    print(f"vertex {vid}: non-finite estimate")
+        for i, e in enumerate(self._edges):
+            if not (np.isfinite(e.measurement).all()
+                    and np.isfinite(e.information).all()):
+                ok = False
+                if verbose:
+                    print(f"edge {i} ({e.etype.name}): non-finite data")
+        return ok
 
     # -- compile -----------------------------------------------------------
 

@@ -17,6 +17,8 @@ candidate's linearization is carried into the next iteration, so no
 residual pass is repeated.  :func:`optimize_fused_gn` is the reference GN
 (``optimization_algorithm_gauss_newton.cpp:50``) in the same style: a
 solve at λ = 0 and the update, no trust region.
+:class:`FusedLevenbergMarquardt` is the same LM iteration as an algorithm
+of :class:`~g2o_tpu_torch.core.optimizer.SparseOptimizer`.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import time
 
 import torch
 
-from g2o_tpu_torch.core.optimizer import _max_abs_diag
+from g2o_tpu_torch.core.optimizer import (OptimizationAlgorithm,
+                                          _max_abs_diag)
 
 # per-solver-object cache token: ``id(solver)`` is NOT a safe key — CPython
 # reuses the id of a collected solver for the next allocation, so a cache
@@ -98,11 +101,18 @@ def make_lm_iteration(problem, solver, max_trials: int):
 
 def optimize_fused(problem, solver, max_iterations: int, *,
                    initial_lambda: float = 0.0, tau: float = 1e-5,
-                   max_trials: int = 10):
+                   max_trials: int = 10, gain_threshold: float = 0.0,
+                   history_cap: int = 512):
     """Run a whole LM optimization.  Mutates ``problem.estimates``; returns
     a dict with the per-iteration histories (the JAX package's keys).
-    Stops early when an iteration exhausts its trials."""
+    Stops early when an iteration exhausts its trials or, with
+    ``gain_threshold > 0``, after an iteration past the first whose
+    relative chi2 gain ``(χ_prev − χ)/χ_prev`` falls below it.
+    ``max_iterations`` is clamped to ``history_cap``, the JAX package's
+    static history length."""
     solver.setup(problem)
+    max_iterations = min(int(max_iterations), int(history_cap))
+    gt = float(gain_threshold)
     lam = initial_lambda if initial_lambda > 0 else -tau
     cache = problem.__dict__.setdefault("_lm_runner_cache", {})
     key = (_solver_token(solver), max_trials)
@@ -122,15 +132,17 @@ def optimize_fused(problem, solver, max_iterations: int, *,
         lam = -lam * float(_max_abs_diag(problem, lin))
     ni = 2.0
     chi_hist, trial_hist, cg_hist = [], [], []
-    chi_f = float(lin.chi2_robust)
-    for _ in range(max_iterations):
+    chi_f = chi_prev = float(lin.chi2_robust)
+    for it in range(max_iterations):
         (est, chi0, chi_f, lam, ni, good, trials, sstate, cg,
          lin) = one_iteration(est, lam, ni, sstate, lin)
         chi_hist.append(chi0)
         trial_hist.append(trials)
         cg_hist.append(cg)
-        if not good:
+        gain = (chi_prev - chi_f) / max(chi_prev, 1e-30)
+        if not good or (gt > 0 and it > 0 and gain < gt):
             break
+        chi_prev = chi_f
     if cuda:
         torch.cuda.synchronize(problem.device)
     wall = time.perf_counter() - t0
@@ -146,14 +158,16 @@ def optimize_fused(problem, solver, max_iterations: int, *,
     }
 
 
-def optimize_fused_gn(problem, solver, max_iterations: int):
+def optimize_fused_gn(problem, solver, max_iterations: int, *,
+                      history_cap: int = 512):
     """Run a whole Gauss-Newton optimization: linearize → solve at λ = 0 →
     oplus.  The chi2 of a step comes with the next linearization; a
     non-finite chi2 keeps the previous estimate and linearization and
     stops.  A stateful solver (the PCG residual floor) threads its state
-    across iterations.  Mutates ``problem.estimates``; returns the JAX
-    package's keys."""
+    across iterations.  ``max_iterations`` is clamped to ``history_cap``.
+    Mutates ``problem.estimates``; returns the JAX package's keys."""
     solver.setup(problem)
+    max_iterations = min(int(max_iterations), int(history_cap))
     p = problem
     sstate = getattr(solver, "state0", None)
     cuda = p.device.type == "cuda"
@@ -185,3 +199,69 @@ def optimize_fused_gn(problem, solver, max_iterations: int):
         "cg_per_iteration": cg_hist,
         "chi2_final": chi,
     }
+
+
+class FusedLevenbergMarquardt(OptimizationAlgorithm):
+    """LM as a :class:`~g2o_tpu_torch.core.optimizer.SparseOptimizer`
+    algorithm over :func:`make_lm_iteration`: the linearization of the
+    accepted candidate is carried into the next iteration, and the solver
+    state (the PCG residual floor) across iterations."""
+
+    def __init__(self, initial_lambda: float = 0.0,
+                 max_trials_after_failure: int = 10, tau: float = 1e-5):
+        self.initial_lambda = float(initial_lambda)
+        self.max_trials = int(max_trials_after_failure)
+        self.tau = tau
+        self._lambda = None
+        self._ni = None
+        self._iteration = None
+        self._levenberg_iters = 0
+
+    def init(self, optimizer):
+        self._lambda = None
+        self._ni = 2.0
+        # one iteration closure per (problem, solver, trials): init() runs
+        # at the top of every optimize() call
+        key = (_solver_token(optimizer.solver), self.max_trials)
+        cache = optimizer.problem.__dict__.setdefault("_lm_step_cache", {})
+        one_iteration = cache.get(key)
+        if one_iteration is None:
+            one_iteration = make_lm_iteration(optimizer.problem,
+                                              optimizer.solver,
+                                              self.max_trials)
+            _cap_cache(cache)
+            cache[key] = one_iteration
+        self._iteration = one_iteration
+        self._lin = None       # carried linearization
+        self._sstate = getattr(optimizer.solver, "state0", None)
+
+    def step(self, optimizer, iteration, stats):
+        p = optimizer.problem
+        if self._lin is None:
+            self._lin = p.linearize_fn(p.data, p.estimates)
+        if self._lambda is None:
+            if self.initial_lambda > 0:
+                self._lambda = self.initial_lambda
+            else:
+                # as optimize_fused derives λ₀ from its first linearization
+                self._lambda = self.tau * float(_max_abs_diag(p, self._lin))
+        (est, chi0, chi_f, lam, ni, good, trials, self._sstate, cg_total,
+         self._lin) = self._iteration(p.estimates, self._lambda, self._ni,
+                                      self._sstate, self._lin)
+        stats.chi2 = chi0
+        self._lambda, self._ni = lam, ni
+        stats.lambda_value = lam
+        stats.levenberg_iterations = trials
+        stats.iterations_linear_solver = cg_total
+        self._levenberg_iters = trials
+        if not good:
+            # a retried step relinearizes the (unchanged) estimates
+            self._lin = None
+            return False
+        p.set_estimates(est)
+        optimizer.current_chi2 = chi_f
+        return True
+
+    def print_verbose_suffix(self):
+        return (f"\t lambda= {self._lambda:.6g}"
+                f"\t levenbergIter= {self._levenberg_iters}")

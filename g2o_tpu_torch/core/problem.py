@@ -157,6 +157,16 @@ class Problem:
         host = {t: e.cpu().numpy() for t, e in self.estimates.items()}
         return {vid: host[t][i] for vid, (t, i) in self.vid_index.items()}
 
+    def get_estimate(self, vid):
+        """The estimate of vertex ``vid`` as a host numpy array."""
+        t, i = self.vid_index[vid]
+        return self.estimates[t][i].cpu().numpy()
+
+    def gauge_freedom(self) -> bool:
+        """True when no vertex is fixed (reference ``gaugeFreedom``,
+        ``g2o/core/sparse_optimizer.cpp:139``)."""
+        return not any(bool(f.any()) for f in self.data.fixed.values())
+
     # ------------------------------------------------------------------ #
     # per-edge residuals and Jacobians
     # ------------------------------------------------------------------ #
@@ -300,6 +310,21 @@ class Problem:
             total_r = total_r + torch.sum(rho[:, 0] * act)
             total_p = total_p + torch.sum(e2 * act)
         return total_r, total_p
+
+    def edge_chi2_fn(self, data: ProblemData, estimates):
+        """Per-edge robust chi2, ``{edge name: (E,)}`` (inactive and padded
+        rows zero) — the reference's ``Edge::chi2()`` after
+        ``robustifyError``, as tools that rank edges by error use it."""
+        out = {}
+        for name, et in self.edge_types.items():
+            batch = data.edges[name]
+            e = et.residual(self._states(et, batch, estimates, name,
+                                         data.plans),
+                            batch.meas, batch.param)
+            e2 = torch.einsum("er,ers,es->e", e, batch.info, e)
+            rho = self._robustify(name, batch, e2)
+            out[name] = rho[:, 0] * batch.active.to(self.dtype)
+        return out
 
     def linearize_fn(self, data: ProblemData, estimates) -> LinearizedSystem:
         b_blocks = {t: torch.zeros((self.counts[t], vt.tangent_dim),
@@ -459,6 +484,12 @@ class Problem:
             return out
 
         return hvp
+
+    def hvp_fn(self, data: ProblemData, lin: LinearizedSystem, v):
+        """Flat ``H·v`` for a ``(T,)`` tangent vector, through
+        :meth:`hvp_operator`."""
+        return self.join_tangent(
+            self.hvp_operator(data, lin)(self.split_tangent(v)))
 
     def dense_hessian_fn(self, data: ProblemData, lin: LinearizedSystem):
         """The full dense ``(T, T)`` tangent-space Hessian ``Σ JᵀWJ`` (the

@@ -10,13 +10,13 @@ from __future__ import annotations
 
 import torch
 
+from g2o_tpu_torch.ops.smallblocks import cholesky_or_nan
+
 
 def cholesky_solve_or_nan(A, b):
     """Solve ``A x = b`` for SPD ``A (n, n)``, ``b (n,)`` by Cholesky; a
     non-positive-definite ``A`` gives a NaN ``x`` (no host sync)."""
-    L, info = torch.linalg.cholesky_ex(A)
-    L = torch.where(info == 0, L, torch.nan)
-    return torch.cholesky_solve(b[:, None], L)[:, 0]
+    return torch.cholesky_solve(b[:, None], cholesky_or_nan(A))[:, 0]
 
 
 class DenseSolver:

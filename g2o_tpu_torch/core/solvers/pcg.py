@@ -46,11 +46,12 @@ _PANEL = 96
 
 class PCGSolver:
     def __init__(self, max_iter: int = 100, tol: float = 1e-6,
-                 precond: str = "jacobi", chunk_size: int = 32,
+                 abs_tol: float = 0.0, precond: str = "jacobi",
+                 chunk_size: int = 32, onehot_max_segments: int = 0,
                  absolute_tolerance: bool = True, carry_factor: float = 0.5,
                  matvec_precision: str = "default",
                  precond_mode: str = "per_solve",
-                 precond_refresh_every: int = 8):
+                 precond_refresh_every: int = 8, precond_dtype=None):
         if precond not in ("jacobi", "chunk", "chunk2"):
             raise ValueError(f"unknown precond {precond!r}")
         if precond_mode not in ("per_solve", "frozen", "every_k"):
@@ -61,6 +62,13 @@ class PCGSolver:
             raise ValueError(f"unknown matvec_precision {matvec_precision!r}")
         self.max_iter = int(max_iter)
         self.tol = float(tol)
+        # accepted for API parity and ignored, as the JAX package does with
+        # abs_tol; onehot_max_segments is the TPU's gather routing, and
+        # precond_dtype the TPU's f32 preconditioner under an f64 CG (the
+        # card has native float64)
+        self.abs_tol = float(abs_tol)
+        self.onehot_max_segments = int(onehot_max_segments)
+        self.precond_dtype = precond_dtype
         self.precond = precond
         self.chunk_size = int(chunk_size)
         self.precond_mode = precond_mode

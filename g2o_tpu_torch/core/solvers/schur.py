@@ -81,8 +81,9 @@ class SchurSolver:
             if m.any() and not m.all():
                 raise NotImplementedError(
                     f"SchurSolver: vertex type {t} is partially "
-                    "marginalized — the implicit Schur solver's general "
-                    "path, which supports it, is not ported yet")
+                    "marginalized — use ImplicitSchurSolver, whose general "
+                    "path supports per-vertex marginalization and n-ary "
+                    "observation edges exactly")
         lm_types = [t for t, v in marg.items() if v]
         pose_types = [t for t, v in marg.items() if not v]
         if not lm_types:

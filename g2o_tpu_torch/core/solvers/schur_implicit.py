@@ -146,7 +146,7 @@ class ImplicitSchurSolver:
 
     def __init__(self, max_iter: int = 100, tol: float = 1e-8, *,
                  precond: str = "schur_jacobi", layout: str = "auto",
-                 max_buckets: int = 10,
+                 onehot_max_segments: int = 8192, max_buckets: int = 10,
                  matvec_precision: str = "auto",
                  absolute_tolerance: bool = True,
                  deflate_basis=None):
@@ -160,6 +160,9 @@ class ImplicitSchurSolver:
         self.tol = float(tol)
         self.precond = precond
         self.layout = layout
+        # the JAX package's TPU gather routing: accepted and ignored (the
+        # kernels take any segment count)
+        self.onehot_max_segments = int(onehot_max_segments)
         self.max_buckets = int(max_buckets)
         self.matvec_precision = matvec_precision
         # reference-PCG absoluteTolerance: half the final residual² of one

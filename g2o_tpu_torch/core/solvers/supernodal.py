@@ -495,34 +495,37 @@ def solve_supernodal(factors, b, levels, d: int):
     """L L^T x = b with the frontal-form factor.  ``factors``: nested
     per-level/per-group ``(Ld, Pm)`` (the output of
     :func:`factorize_frontal`); ``levels``: matching nested index tensors
-    (``aux['levels']``); ``b``: (n, d) permuted block rhs, not modified."""
-    n = b.shape[0]
+    (``aux['levels']``); ``b``: (n, d) permuted block rhs, or (n, d, m)
+    for m right-hand sides at once; not modified."""
+    one = b.dim() == 2
+    if one:
+        b = b[..., None]
+    n, m = b.shape[0], b.shape[2]
     # row n is the target of the padded ids; only zeros land there
-    b = torch.cat([b, b.new_zeros((1, d))])
+    b = torch.cat([b, b.new_zeros((1, d, m))])
 
-    def gather_rhs(ids, mask):              # block ids -> (S, P*d)
-        return b[ids].reshape(mask.shape) * mask
+    def gather_rhs(ids, mask):              # block ids -> (S, P*d, m)
+        return b[ids].reshape(mask.shape + (m,)) * mask[..., None]
 
     # forward: per level ascending — y_S = L_SS^{-1} b_S; b_R -= P y_S
     for lv_f, lv_a in zip(factors, levels):
         for (Ld, Pm), ga in zip(lv_f, lv_a):
             rhs = gather_rhs(ga["cids"], ga["cm"])
-            y = _solve_lower_batched(Ld, rhs[..., None], d)[..., 0] * ga["cm"]
-            b.index_copy_(0, ga["cids"], y.reshape(-1, d))
+            y = _solve_lower_batched(Ld, rhs, d) * ga["cm"][..., None]
+            b.index_copy_(0, ga["cids"], y.reshape(-1, d, m))
             if Pm.shape[1]:
-                contrib = (Pm @ y[..., None])[..., 0]
-                b.index_add_(0, ga["rids"], contrib.reshape(-1, d), alpha=-1)
+                b.index_add_(0, ga["rids"], (Pm @ y).reshape(-1, d, m),
+                             alpha=-1)
 
     # backward: per level descending — x_S = L_SS^{-T}(y_S - P^T x_R)
     for lv_f, lv_a in zip(reversed(factors), reversed(levels)):
         for (Ld, Pm), ga in zip(lv_f, lv_a):
             rhs = gather_rhs(ga["cids"], ga["cm"])
             if Pm.shape[1]:
-                xr = gather_rhs(ga["rids"], ga["rm"])
-                rhs = rhs - (Pm.mT @ xr[..., None])[..., 0]
-            x = _solve_upper_batched(Ld, rhs[..., None], d)[..., 0] * ga["cm"]
-            b.index_copy_(0, ga["cids"], x.reshape(-1, d))
-    return b[:n]
+                rhs = rhs - Pm.mT @ gather_rhs(ga["rids"], ga["rm"])
+            x = _solve_upper_batched(Ld, rhs, d) * ga["cm"][..., None]
+            b.index_copy_(0, ga["cids"], x.reshape(-1, d, m))
+    return b[:n, :, 0] if one else b[:n]
 
 
 # --------------------------------------------------------------------- #

@@ -1,11 +1,55 @@
-"""Closed-form inverses of tiny SPD blocks — port of
-``g2o_tpu/ops/smallblocks.py::inv_small`` (the block-Jacobi
-preconditioner's per-vertex inverse) and ``::inv_small_t`` (its dims-major
-twin)."""
+"""Closed forms on tiny SPD blocks — port of
+``g2o_tpu/ops/smallblocks.py``: ``chol_small`` (the square-root CGLS
+solver's whitening factor), ``inv_small`` (the block-Jacobi
+preconditioner's per-vertex inverse) and ``inv_small_t`` (its dims-major
+twin); and ``cholesky_or_nan``, the port's one Cholesky with the JAX
+package's failure mode."""
 
 from __future__ import annotations
 
 import torch
+
+
+def cholesky_or_nan(A):
+    """Lower Cholesky factor of SPD ``A (..., n, n)``; a matrix that is not
+    positive definite gets a NaN factor, as ``jnp.linalg.cholesky`` gives
+    it, on the device and without a host read (an LM trial then fails
+    instead of raising)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where(info[..., None, None] == 0, L, torch.nan)
+
+
+def chol_small(A):
+    """Lower Cholesky factor of SPD blocks (..., r, r): closed form for r
+    in {1, 2, 3} (the JAX package's formulas), :func:`cholesky_or_nan`
+    above.  A block that is not positive definite gives NaN on either
+    route, as the JAX package's square roots and Cholesky do."""
+    r = A.shape[-1]
+    if r == 1:
+        return torch.sqrt(A)
+    if r == 2:
+        a = torch.sqrt(A[..., 0, 0])
+        b = A[..., 1, 0] / a
+        c = torch.sqrt(A[..., 1, 1] - b * b)
+        z = torch.zeros_like(a)
+        return torch.stack([
+            torch.stack([a, z], dim=-1),
+            torch.stack([b, c], dim=-1),
+        ], dim=-2)
+    if r == 3:
+        l11 = torch.sqrt(A[..., 0, 0])
+        l21 = A[..., 1, 0] / l11
+        l31 = A[..., 2, 0] / l11
+        l22 = torch.sqrt(A[..., 1, 1] - l21 * l21)
+        l32 = (A[..., 2, 1] - l31 * l21) / l22
+        l33 = torch.sqrt(A[..., 2, 2] - l31 * l31 - l32 * l32)
+        z = torch.zeros_like(l11)
+        return torch.stack([
+            torch.stack([l11, z, z], dim=-1),
+            torch.stack([l21, l22, z], dim=-1),
+            torch.stack([l31, l32, l33], dim=-1),
+        ], dim=-2)
+    return cholesky_or_nan(A)
 
 
 def inv_small(A):
@@ -43,11 +87,7 @@ def inv_small(A):
             torch.stack([c02, c12, c22], dim=-1),
         ], dim=-2)
         return M * inv_det[..., None, None]
-    # a block that is not positive definite gives NaN, as the JAX
-    # package's Cholesky does (an LM trial then fails instead of raising)
-    L, info = torch.linalg.cholesky_ex(A)
-    return torch.cholesky_inverse(torch.where(info[..., None, None] == 0, L,
-                                              torch.nan))
+    return torch.cholesky_inverse(cholesky_or_nan(A))
 
 
 def inv_small_t(At):

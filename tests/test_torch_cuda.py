@@ -3,7 +3,8 @@ segment-sum kernels (K5–K10) against their plain PyTorch versions, and the
 PCG (per-solve and, on a manhattan graph, ``every_k``), supernodal, host
 Cholesky, explicit and implicit Schur (BAL; and the sba problems of
 ``chip_smoke.py`` on the general path and the bucketed multi-observer
-branch) paths on the card against the same paths on the CPU.
+branch), CGLS, Dogleg and sparse Cholesky paths on the card against the
+same paths on the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
 This file imports neither JAX nor ``g2o_tpu``, so it also runs on a machine
@@ -828,3 +829,90 @@ def test_sba_paths_on_card_match_cpu(path):
         assert min(launches[1]) > 0
     np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
     assert chis[1][-1] < 0.1 * chis[1][0]
+
+
+@pytest.mark.cuda
+def test_cgls_on_card_matches_cpu():
+    """10 LM iterations of CGLS on the C20 BAL file loaded with
+    ``bucket_landmarks`` (Huber, float64): the dims-major gather and segment
+    sum (K5/K6) run on the card at least once per CG iteration, never on
+    the CPU; the trajectory is the CPU's."""
+    _need_card()
+    with gzip.open(C20, "rt") as fh:
+        text = fh.read()
+    wrappers = (onehot.onehot_gather_t, onehot.onehot_scatter_add_t)
+    chis, launches, cg = [], [], []
+    for device in ("cpu", "cuda"):
+        p = bal.load_bal_problem(io.StringIO(text), huber=1.0, device=device,
+                                 bucket_landmarks=True)
+        before = [w.launches for w in wrappers]
+        s = g2o_tpu_torch.CGLSSolver(max_iter=200, eta=1e-8)
+        res = g2o_tpu_torch.optimize_fused(p, s, 10)
+        launches.append([w.launches - b for w, b in zip(wrappers, before)])
+        cg.append(s.cg_iterations)
+        chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
+    assert launches[0] == [0, 0]
+    assert min(launches[1]) >= cg[1] > 0
+    np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [100.0, 1e-3])
+def test_dogleg_on_card_matches_cpu(delta):
+    """12 Dogleg iterations over the supernodal solver (float64, a sphere
+    with 144-column panels, so K1/K2/K3 run on the card): the chi2, radius
+    and step kinds of the CPU run."""
+    _need_card()
+    runs, launches = [], []
+    for device in ("cpu", "cuda"):
+        g = create_sphere(nodes_per_level=10, laps=10, seed=5)
+        g.set_robust_kernel("Huber", 1.0)
+        p = g.compile(dtype=torch.float64, device=device)
+        opt = g2o_tpu_torch.SparseOptimizer(
+            p, algorithm=g2o_tpu_torch.Dogleg(initial_delta=delta),
+            solver=g2o_tpu_torch.SupernodalCholeskySolver())
+        rec = []
+        opt.post_iteration_actions.append(lambda o, it: rec.append(
+            (o.current_chi2, o.algorithm.delta, o.algorithm._last_step)))
+        before = chol_kernels.chol_batched.launches
+        opt.optimize(12)
+        launches.append(chol_kernels.chol_batched.launches - before)
+        runs.append(rec)
+    assert launches[0] == 0 and launches[1] > 0
+    assert [r[2] for r in runs[1]] == [r[2] for r in runs[0]]
+    np.testing.assert_allclose([r[:2] for r in runs[1]],
+                               [r[:2] for r in runs[0]], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sparse_cholesky_on_card_matches_cpu():
+    """One f64 solve and 10 LM iterations of ``SparseCholeskySolver`` on a
+    manhattan graph: the card's step is the CPU's to 1e-9 and the
+    trajectory to 1e-6; an indefinite system gives NaN on the card too,
+    without an exception; the Takahashi marginals agree to 1e-9."""
+    _need_card()
+    from g2o_tpu_torch.core.marginals import compute_marginals
+
+    dxs, chis, covs = [], [], []
+    for device in ("cpu", "cuda"):
+        p = create_manhattan(n_poses=300, seed=0).compile(
+            dtype=torch.float64, device=device)
+        lin = p.linearize_fn(p.data, p.estimates)
+        dxs.append(g2o_tpu_torch.SparseCholeskySolver().setup(p).solve(
+            p.data, lin, 1e-3).cpu().numpy())
+        covs.append(compute_marginals(p, [1, 150, 299], lam=1e-4,
+                                      method="takahashi"))
+        res = g2o_tpu_torch.optimize_fused(
+            p, g2o_tpu_torch.SparseCholeskySolver(), 10)
+        chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
+        if device == "cuda":
+            for W in lin.weights.values():
+                W.neg_()
+            bad = g2o_tpu_torch.SparseCholeskySolver().setup(p).solve(
+                p.data, lin, 0.0)
+            assert torch.isnan(bad).any()
+    assert np.abs(dxs[1] - dxs[0]).max() <= 1e-9 * np.abs(dxs[0]).max()
+    np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
+    for v in covs[0]:
+        assert np.abs(covs[1][v] - covs[0][v]).max() <= \
+            1e-9 * np.abs(covs[0][v]).max()
