@@ -141,6 +141,31 @@ exits non-zero without printing a result:
     ``schur`` blocks of 4 cameras and 4 points against the ``dense``
     route's (≤ 1e-8), ``[marginals]``.
 
+12. the remaining type libraries and the simulators: ``[check_types]``,
+    every edge type of the slam3d additions, slam3d_addons,
+    slam2d_addons, sclam2d, icp and sim3 — residuals and ``torch.func``
+    Jacobians at 10⁵ random valid edges each, f64 on the card against the
+    CPU (≤ 1e-10), and the Sim3 edge at errors on both sides of
+    ``_sim3_W``'s 1e-7 thresholds (≤ 1e-8, the branches' cancellation);
+    then two scenes built by the port's simulators with all nine sensors
+    each: ``create_simulator3d(1000 poses, 800 landmarks, 30 lines, 12
+    planes)`` (1,001 SE3 poses with the fixed calibration vertex, 638
+    points, 31,555 edges, 8,076 dims) on ``SupernodalCholeskySolver`` and
+    ``create_simulator2d(3500 poses, 1000 landmarks, 80 segments, 40
+    lines)`` (4,428 vertices, 185,608 edges, 12,488 dims) on chunk2 PCG
+    with the sphere path's settings.  Each is written with ``dumps`` and
+    read back with ``loads`` (the text a fixed point, the chi2 the
+    in-memory graph's within 1e-7, ``[load_sim*]``); from the generator's
+    estimates moved by seeded tangent noise, one f64 step at LM's first
+    λ against ``DenseSolver`` (≤ 1e-8, ``[check_sim*]``), 30 f64 LM
+    iterations on ``SupernodalCholeskySolver`` (``[yardstick_sim*]``),
+    then the f32 main path, 30 iterations after a warm-up
+    (``[main_path_sim*]``: chi2 within 1% of the yardstick's and 10x
+    below the first, K1/K2/K3 launched on the 3D scene and K1/K2 on the
+    2D scene, per λ-trial counts; ``[trace_main_path_sim*]``), and K1/K2/K3
+    timed at the shapes that run gave them (the 2D coarse level (1, 1152,
+    1152) also held on its real coarse matrix).
+
 Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
 untraced run's wall time per λ-trial, kernel launches per λ-trial and the
@@ -287,6 +312,48 @@ CGLS_BOUND = 48790.33 * 1.01
 MARGINAL_LAM = 1e-5
 MARGINAL_SPARSE_VERTICES = 16
 MARGINAL_BA_VERTICES = 4
+# phase 12: the two simulator scenes with all nine sensors each, as the
+# port's create_simulator3d / create_simulator2d build them.  Each scene's
+# LM runs start from the generator's estimates moved by seeded tangent
+# noise (SIM_START_SIGMA[scene] on every coordinate of every free vertex):
+# the generator returns the true poses, whose chi2 is only 2-4x the
+# optimum's, and the bar asks the runs to cut chi2 10x.  The noise puts
+# the start 20-100x above the optimum while LM still converges within
+# SIM_ITERS: on the 3D scene (rotation noise 0.005 rad) sigma = 0.05 left
+# the f64 and f32 runs 2% apart and short of the optimum after 30
+# iterations on an NVIDIA H100
+SIM3D_SENSORS = ("odometry", "pose", "pose_offset", "se3prior", "trackxyz",
+                 "depth", "disparity", "line3d", "plane")
+SIM2D_SENSORS = ("odometry", "pose", "pointxy", "bearing", "pointxy_offset",
+                 "segment", "segment_line", "segment_pointline", "line2d")
+SIM_SCENES = {
+    "sim3d": ("create_simulator3d", dict(
+        n_poses=1000, n_landmarks=800, world_size=30.0, n_lines=30,
+        n_planes=12, seed=0, sensors=SIM3D_SENSORS)),
+    "sim2d": ("create_simulator2d", dict(
+        n_poses=3500, n_landmarks=1000, world_size=75.0, n_segments=80,
+        n_lines=40, seed=4, sensors=SIM2D_SENSORS)),
+}
+SIM_ITERS = 30
+SIM_START_SIGMA = {"sim3d": 0.01, "sim2d": 0.05}
+SIM_START_SEED = 100
+# the 2D scene's solver: the sphere path's PCG settings; its f64 check
+# runs CG to the rounding floor
+SIM_PCG = dict(max_iter=50, tol=1e-1, precond="chunk2", chunk_size=16)
+SIM_PCG_CHECK = dict(max_iter=5000, tol=1e-13, precond="chunk2",
+                     chunk_size=16, absolute_tolerance=False)
+# [check_types]: edges per type, and the (sigma, |omega|) pairs of the
+# Sim3 error on both sides of _sim3_W's 1e-7 thresholds.  Just above the
+# sigma threshold A = (e^sigma - 1)/sigma cancels: one ulp of exp moves W by
+# ~eps/sigma = 5.5e-10 at sigma = 2e-7 (W is that far from its integral in
+# the JAX package too, tests/test_torch_sim3.py), so card and CPU part by
+# ~1e-9 there: those cases are held to SIM3_W_LIMIT, every random-state
+# case to 1e-10 (ROADMAP C)
+CHECK_TYPES_EDGES = 100_000
+SIM3_W_CASES = ((0.0, 0.0), (5e-8, 5e-8), (2e-7, 5e-8), (5e-8, 2e-7),
+                (2e-7, 2e-7), (1e-3, 0.3))
+SIM3_W_LIMIT = 1e-8
+
 # the shape each kernel's entry in the JSON line reports
 PRIMARY = {"chol_batched": (1, 960, 960),
            "solve_lower_batched": (1, 960, 960),
@@ -417,77 +484,87 @@ def kernel_phase(torch, ck):
     rng = np.random.default_rng(0)
     out = {}
     for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).split(".")[1]
         for S, n, m in SHAPES:
-            D = torch.as_tensor(_spd(rng, S, n), dtype=dtype, device="cuda")
-            B = (torch.eye(n, dtype=dtype, device="cuda").expand(S, n, n)
-                 .contiguous() if n == m else
-                 torch.as_tensor(rng.standard_normal((S, n, m)), dtype=dtype,
-                                 device="cuda"))
-            Lp = ck.chol_batched_plain(D).contiguous()
-            # (kernel, plain version, the one library call)
-            fns = {
-                "chol_batched": (lambda: ck.chol_batched(D),
-                                 lambda: ck.chol_batched_plain(D),
-                                 lambda: torch.linalg.cholesky_ex(D)),
-                "solve_lower_batched": (
-                    lambda: ck.solve_lower_batched(Lp, B),
-                    lambda: ck.solve_lower_batched_plain(Lp, B),
-                    lambda: torch.linalg.solve_triangular(Lp, B,
-                                                          upper=False)),
-                "solve_upper_batched": (
-                    lambda: ck.solve_upper_batched(Lp, B),
-                    lambda: ck.solve_upper_batched_plain(Lp, B),
-                    lambda: torch.linalg.solve_triangular(Lp.mT, B,
-                                                          upper=True)),
-            }
-            err, rel = {}, {}
-            for k, (kern, plain, _) in fns.items():
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
-                err[k] = (got - want).abs().max().item()
-                rel[k] = err[k] / want.abs().max().item()
-            ok = max(rel.values()) <= TOL[dname]
-            phase("kernels", dtype=dname, shape=_shape(S, n, m),
-                  chol_rel_err=f"{rel['chol_batched']:.3e}",
-                  solve_rel_err=f"{rel['solve_lower_batched']:.3e}",
-                  solve_upper_rel_err=f"{rel['solve_upper_batched']:.3e}",
-                  tol=TOL[dname], ok=ok)
-            if not ok:
-                raise RuntimeError(f"a kernel disagrees with its plain "
-                                   f"version at {dname} {(S, n, m)}: {rel}")
             timed = (KERNELS[:3] if (S, n, m) in TIMED else KERNELS[1:3]
                      if (S, n, m) in SWEEP_TIMED else KERNELS[:2]
                      if (S, n, m) in COARSE_TIMED else ())
-            if timed and dtype == torch.float32:
-                # in turns: plain, library, kernel, kernel, library, plain
-                res = {}
-                for k in timed:
-                    kern, plain, lib = fns[k]
-                    t = _in_turns(torch, {"plain_ms": plain,
-                                          "library_ms": lib, "ms": kern})
-                    b_ms, b_by = bound(k, (S, n, m), rhs_identity=n == m)
-                    dev_us, ops = device_profile(torch, kern)
-                    res[k] = dict(max_abs_err=err[k], ms=t["ms"],
-                                  plain_ms=t["plain_ms"],
-                                  library_ms=t["library_ms"],
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  device_us_per_call=dev_us,
-                                  device_ops_per_call=ops)
+            res = chol_shape_check(torch, ck, rng, dtype, (S, n, m), timed)
+            if res:
                 out[_shape(S, n, m)] = res
-                phase("kernel_times", shape=_shape(S, n, m), dtype=dname,
-                      **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in res.items()},
-                      **{f"{k}_plain_ms": f"{v['plain_ms']:.4f}"
-                         for k, v in res.items()},
-                      **{f"{k}_library_ms": f"{v['library_ms']:.4f}"
-                         for k, v in res.items()},
-                      **{f"{k}_bound_ms": f"{v['bound_ms']:.4f}"
-                         for k, v in res.items()},
-                      **{f"{k}_device_us": f"{v['device_us_per_call']:.2f}"
-                         for k, v in res.items()},
-                      **{f"{k}_device_ops": v["device_ops_per_call"]
-                         for k, v in res.items()})
     return out
+
+
+def chol_shape_check(torch, ck, rng, dtype, shape, timed, tag="kernels"):
+    """K1/K2/K3 against their plain versions at ``shape`` = (S, n, m) on a
+    random SPD batch (B = I when n == m), raising past ``TOL``; in float32
+    also time the kernels of ``timed`` beside their plain versions and the
+    library call, in turns, with their bound and the device µs and
+    operations of one call.  Returns ``{kernel: facts}`` of the timed
+    ones."""
+    S, n, m = shape
+    dname = str(dtype).split(".")[1]
+    D = torch.as_tensor(_spd(rng, S, n), dtype=dtype, device="cuda")
+    B = (torch.eye(n, dtype=dtype, device="cuda").expand(S, n, n)
+         .contiguous() if n == m else
+         torch.as_tensor(rng.standard_normal((S, n, m)), dtype=dtype,
+                         device="cuda"))
+    Lp = ck.chol_batched_plain(D).contiguous()
+    # (kernel, plain version, the one library call)
+    fns = {
+        "chol_batched": (lambda: ck.chol_batched(D),
+                         lambda: ck.chol_batched_plain(D),
+                         lambda: torch.linalg.cholesky_ex(D)),
+        "solve_lower_batched": (
+            lambda: ck.solve_lower_batched(Lp, B),
+            lambda: ck.solve_lower_batched_plain(Lp, B),
+            lambda: torch.linalg.solve_triangular(Lp, B, upper=False)),
+        "solve_upper_batched": (
+            lambda: ck.solve_upper_batched(Lp, B),
+            lambda: ck.solve_upper_batched_plain(Lp, B),
+            lambda: torch.linalg.solve_triangular(Lp.mT, B, upper=True)),
+    }
+    err, rel = {}, {}
+    for k, (kern, plain, _) in fns.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err[k] = (got - want).abs().max().item()
+        rel[k] = err[k] / want.abs().max().item()
+    ok = max(rel.values()) <= TOL[dname]
+    phase(tag, dtype=dname, shape=_shape(S, n, m),
+          chol_rel_err=f"{rel['chol_batched']:.3e}",
+          solve_rel_err=f"{rel['solve_lower_batched']:.3e}",
+          solve_upper_rel_err=f"{rel['solve_upper_batched']:.3e}",
+          tol=TOL[dname], ok=ok)
+    if not ok:
+        raise RuntimeError(f"a kernel disagrees with its plain version at "
+                           f"{dname} {(S, n, m)}: {rel}")
+    res = {}
+    if not timed or dtype != torch.float32:
+        return res
+    # in turns: plain, library, kernel, kernel, library, plain
+    for k in timed:
+        kern, plain, lib = fns[k]
+        t = _in_turns(torch, {"plain_ms": plain, "library_ms": lib,
+                              "ms": kern})
+        b_ms, b_by = bound(k, (S, n, m), rhs_identity=n == m)
+        dev_us, ops = device_profile(torch, kern)
+        res[k] = dict(max_abs_err=err[k], ms=t["ms"], plain_ms=t["plain_ms"],
+                      library_ms=t["library_ms"], bound_ms=b_ms,
+                      bound_by=b_by, device_us_per_call=dev_us,
+                      device_ops_per_call=ops)
+    phase("kernel_times", shape=_shape(S, n, m), dtype=dname,
+          **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in res.items()},
+          **{f"{k}_plain_ms": f"{v['plain_ms']:.4f}"
+             for k, v in res.items()},
+          **{f"{k}_library_ms": f"{v['library_ms']:.4f}"
+             for k, v in res.items()},
+          **{f"{k}_bound_ms": f"{v['bound_ms']:.4f}"
+             for k, v in res.items()},
+          **{f"{k}_device_us": f"{v['device_us_per_call']:.2f}"
+             for k, v in res.items()},
+          **{f"{k}_device_ops": v["device_ops_per_call"]
+             for k, v in res.items()})
+    return res
 
 
 def segment_kernel_phase(torch, sk, ba):
@@ -659,14 +736,15 @@ def trace_gn(p, est0, run, tag, ms_per_iteration, iters):
 
 def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
             iters=50, chi2_bound=CHI2_BOUND, extra=None, watch=None,
-            trace_iters=5):
+            trace_iters=5, per_trial=()):
     """Warm up, then run ``optimize_fused(p, solver, iters)`` from ``est0``
     with every kernel count set to 0 just before; print the ``[tag]`` line
     (plus the ``extra`` facts) and raise unless every chi2 is finite, the
     final chi2 is within ``chi2_bound`` and each kernel of ``need``
     launched; then trace ``trace_iters`` iterations of it
-    (``[trace_<tag>]``).  Returns the result and the launch counts of that
-    run."""
+    (``[trace_<tag>]``).  ``per_trial``: kernels whose launches per
+    λ-trial the line adds, with the CG iterations per solve.  Returns the
+    result and the launch counts of that run."""
     g2o.optimize_fused(p, solver, 2)                 # warm-up
     p.set_estimates({t: v.clone() for t, v in est0.items()})
     for w in wrappers.values():
@@ -692,6 +770,11 @@ def _run_lm(torch, g2o, wrappers, p, est0, solver, tag, need,
           chi2_0=f"{chis[0]:.4f}", chi2_10=f"{chis[min(10, n)]:.4f}",
           chi2_final=f"{res['chi2_final']:.4f}", bound=f"{chi2_bound:.2f}",
           **(extra or {}),
+          **({"cg_iterations_per_solve": "{:.2f}".format(
+              sum(res["cg_per_iteration"]) / max(trials, 1))}
+             if per_trial else {}),
+          **{f"{k}_per_lambda_trial": f"{launches[k] / max(trials, 1):.2f}"
+             for k in per_trial},
           **{f"launches_{k}": v for k, v in launches.items()})
     if not all(math.isfinite(c) for c in chis):
         raise RuntimeError(f"non-finite chi2 on the {tag} run")
@@ -2042,6 +2125,371 @@ def api_phase(torch, g2o, wrappers, implicit, sba):
     return by_path
 
 
+def _counts(items):
+    """``name:count;...`` of an iterable of names, in first-seen order."""
+    out = {}
+    for k in items:
+        out[k] = out.get(k, 0) + 1
+    return ";".join(f"{k}:{v}" for k, v in out.items())
+
+
+def load_sim(torch, g2o, name):
+    """Phase 12, one scene: build it with the port's simulator, write it
+    with the port's ``dumps`` and read it back with ``loads``; compile the
+    reloaded graph in f64 and f32 on the card and move its estimates by
+    the seeded start noise.  The reloaded graph must write the text it was
+    read from (a fixed point, so a second round trip gives its chi2
+    exactly), and its chi2 must be the generator's in-memory graph's
+    within 1e-7: the text keeps 10 significant digits, each number moves
+    by up to 5e-11 of itself.  Returns ``{"graph", "p64", "p32", "est64",
+    "est32"}``."""
+    from g2o_tpu_torch.io import g2o_format
+    from g2o_tpu_torch.sim import generators
+
+    make, kw = SIM_SCENES[name]
+    t0 = time.perf_counter()
+    g = getattr(generators, make)(**kw)
+    t1 = time.perf_counter()
+    text = g2o_format.dumps(g)
+    t2 = time.perf_counter()
+    g2 = g2o_format.loads(text)
+    t3 = time.perf_counter()
+    fixed_point = g2o_format.dumps(g2) == text
+    p_orig = g.compile(dtype=torch.float64, device="cuda")
+    chi_orig = float(p_orig.chi2_fn(p_orig.data, p_orig.estimates)[0])
+    del p_orig
+    t4 = time.perf_counter()
+    p64 = g2.compile(dtype=torch.float64, device="cuda")
+    p32 = g2.compile(dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    chi_back = float(p64.chi2_fn(p64.data, p64.estimates)[0])
+    rng = np.random.default_rng(SIM_START_SEED)
+    dx = torch.as_tensor(SIM_START_SIGMA[name] * rng.standard_normal(
+        p64.total_dim), dtype=torch.float64, device="cuda")
+    est64 = p64.apply_update_fn(p64.data, p64.estimates, dx)
+    est32 = {t: v.to(torch.float32) for t, v in est64.items()}
+    chi_start = float(p64.chi2_fn(p64.data, est64)[0])
+    rel_orig = abs(chi_back - chi_orig) / chi_orig
+    phase(f"load_{name}", vertices=g2.num_vertices, edges=g2.num_edges,
+          tangent_dim=p64.total_dim, vertex_types=_counts(
+              r.vtype.name for r in g2.vertices().values()),
+          edge_types=_counts(e.etype.name for e in g2.edges()),
+          parameters=len(g2.parameters()),
+          fixed=sum(r.fixed for r in g2.vertices().values()),
+          text_mb=f"{len(text) / 2 ** 20:.2f}",
+          generate_s=f"{t1 - t0:.3f}", save_s=f"{t2 - t1:.3f}",
+          reload_s=f"{t3 - t2:.3f}", check_s=f"{t4 - t3:.3f}",
+          compile_s=f"{t5 - t4:.3f}", text_fixed_point=fixed_point,
+          chi2_original=f"{chi_orig:.6f}", chi2_reloaded=f"{chi_back:.6f}",
+          rel_diff_original=f"{rel_orig:.3e}", original_limit="1e-7",
+          start_sigma=SIM_START_SIGMA[name], chi2_start=f"{chi_start:.4f}")
+    if not (fixed_point and rel_orig <= 1e-7):
+        raise RuntimeError(f"{name}: the reloaded graph (chi2 {chi_back}) "
+                           f"against the generator's ({chi_orig}); text "
+                           f"fixed point {fixed_point}")
+    return dict(graph=g2, p64=p64, p32=p32, est64=est64, est32=est32)
+
+
+def sim_check(torch, g2o, name, scene):
+    """One f64 solve at the start's linearization and LM's first λ
+    (1e-5·max|H_jj|) with the scene's solver against ``DenseSolver``
+    (relative difference ≤ 1e-8); the 2D scene's PCG runs CG to its
+    rounding floor."""
+    from g2o_tpu_torch.core.optimizer import _max_abs_diag
+
+    p = scene["p64"]
+    _reset(p, scene["est64"])
+    lin = p.linearize_fn(p.data, p.estimates)
+    lam0 = 1e-5 * float(_max_abs_diag(p, lin))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dx_d = g2o.DenseSolver().setup(p).solve(p.data, lin, lam0)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    facts = {}
+    if name == "sim3d":
+        s = g2o.SupernodalCholeskySolver().setup(p)
+        t0 = time.perf_counter()
+        dx = s.solve(p.data, lin, lam0)
+    else:
+        s = g2o.PCGSolver(**SIM_PCG_CHECK).setup(p)
+        t0 = time.perf_counter()
+        dx, st = s._solve_fn(p.data, lin, lam0)
+        facts = dict(cg_iterations=int(st["cg_iterations"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rel = float((dx - dx_d).norm() / dx_d.norm())
+    phase(f"check_{name}", solver=type(s).__name__, lam0=f"{lam0:.6e}",
+          rel_diff_to_dense=f"{rel:.3e}", limit="1e-8", **facts,
+          solve_ms=f"{ms:.1f}", dense_ms=f"{dense_ms:.1f}",
+          dense_dim=p.total_dim, peak_device_gib=f"{peak_gb:.2f}")
+    if not (math.isfinite(rel) and rel <= 1e-8):
+        raise RuntimeError(f"{name}: the f64 step is {rel} from the dense "
+                           f"step")
+
+
+def _sim_kernel_shapes(name, solver, coarse):
+    """The (S, n, m) shapes at which the scene's main path launches K1/K2/K3
+    and which kernels each shape times: the supernodal group with the most
+    factorization work (its diagonal panels, below-panel block and sweep
+    column), or the chunk2 coarse level (B = I)."""
+    if name == "sim2d":
+        n = coarse[0].shape[0]
+        return {(1, n, n): KERNELS[:2]}
+    d = solver.meta["d"]
+    groups = [g for g in solver._static["groups"] if g["spb"] * d > 96]
+    g = max(groups, key=lambda g: g["S"] * g["spb"] ** 3)
+    S, sd, md = g["S"], g["spb"] * d, g["mpb"] * d
+    out = {(S, sd, sd): KERNELS[:1], (S, sd, 1): KERNELS[1:3]}
+    if md:
+        out[(S, sd, md)] = KERNELS[1:2]
+    return out
+
+
+def sim_path_phase(torch, g2o, ck, wrappers, name, scene, times):
+    """Phase 12's runs on one scene: the f64 check, the f64 supernodal
+    yardstick, then the main path — f32 ``optimize_fused`` with the
+    scene's solver (``_run_lm``: its chi2 within 1% of the yardstick's
+    and 10x below the first, every chi2 finite, the scene's kernels
+    launched), traced — and K1/K2/K3 at the shapes it gave them.  Returns
+    the launch counts of the main path."""
+    t_phase = time.perf_counter()
+    sim_check(torch, g2o, name, scene)
+    p64, p32 = scene["p64"], scene["p32"]
+    _reset(p64, scene["est64"])
+    res_y = g2o.optimize_fused(p64, g2o.SupernodalCholeskySolver(),
+                               SIM_ITERS)
+    chi_y = res_y["chi2_final"]
+    chi0 = res_y["chi2_per_iteration"][0]
+    trials_y = max(sum(res_y["trials_per_iteration"]), 1)
+    phase(f"yardstick_{name}", solver="SupernodalCholeskySolver",
+          dtype="float64", iterations=res_y["iterations"],
+          chi2_0=f"{chi0:.4f}", chi2_final=f"{chi_y:.6f}",
+          ms_per_lambda_trial=f"{res_y['wall_s'] * 1e3 / trials_y:.3f}")
+    if not all(math.isfinite(c) for c in res_y["chi2_per_iteration"]):
+        raise RuntimeError(f"{name}: non-finite chi2 on the yardstick run")
+    coarse = None
+    if name == "sim3d":
+        solver = g2o.SupernodalCholeskySolver().setup(p32)
+        need, watch = KERNELS[:3], {"k3": ("solve_upper",)}
+    else:
+        solver = g2o.PCGSolver(**SIM_PCG).setup(p32)
+        coarse = _keep_first_coarse(solver)
+        need, watch = KERNELS[:2], None
+    res, launches = _run_lm(
+        torch, g2o, wrappers, p32, scene["est32"], solver,
+        f"main_path_{name}", need=need, iters=SIM_ITERS,
+        chi2_bound=min(chi_y * 1.01, chi0 / 10), watch=watch,
+        per_trial=need, extra=dict(yardstick_chi2=f"{chi_y:.4f}"))
+    if abs(res["chi2_final"] - chi_y) > 0.01 * chi_y:
+        raise RuntimeError(f"{name}: f32 chi2 {res['chi2_final']} not "
+                           f"within 1% of the yardstick's {chi_y}")
+    if coarse is not None:
+        del solver._assemble_coarse
+        coarse_matrix_check(torch, coarse[0])
+    rng = np.random.default_rng(12)
+    for shape, timed in _sim_kernel_shapes(name, solver, coarse).items():
+        for dtype in (torch.float32, torch.float64):
+            res_k = chol_shape_check(torch, ck, rng, dtype, shape, timed,
+                                     tag=f"kernels_{name}")
+            if res_k:
+                times[_shape(*shape)] = res_k
+    phase(f"done_{name}", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def _unit(rng, E, k):
+    v = rng.standard_normal((E, k))
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def _rand_se3(rng, E, scale=2.0):
+    q = _unit(rng, E, 4)
+    q[q[:, 3] < 0] *= -1.0
+    return np.concatenate([scale * rng.standard_normal((E, 3)), q], 1)
+
+
+def _rand_line3d(rng, E):
+    d = _unit(rng, E, 3)
+    return np.concatenate([np.cross(3 * rng.standard_normal((E, 3)), d), d],
+                          1)
+
+
+def _rand_plane(rng, E):
+    return np.concatenate([_unit(rng, E, 3), rng.uniform(-5, 5, (E, 1))], 1)
+
+
+def _rand_sim3(rng, E):
+    return np.concatenate([_rand_se3(rng, E),
+                           np.exp(0.3 * rng.standard_normal((E, 1)))], 1)
+
+
+def _rand_angle(rng, E):
+    return rng.uniform(-np.pi, np.pi, (E, 1))
+
+
+_CHECK_STATES = {
+    "VERTEX_SE3:QUAT": _rand_se3, "VERTEX3": _rand_se3,
+    "VERTEX_TRACKXYZ": lambda rng, E: 3 * rng.standard_normal((E, 3)),
+    "VERTEX_PLANE": _rand_plane, "VERTEX_LINE3D": _rand_line3d,
+    "VERTEX_SE2": lambda rng, E: np.concatenate(
+        [3 * rng.standard_normal((E, 2)), _rand_angle(rng, E)], 1),
+    "VERTEX_XY": lambda rng, E: 3 * rng.standard_normal((E, 2)),
+    "VERTEX_SEGMENT2D": lambda rng, E: 3 * rng.standard_normal((E, 4)),
+    "VERTEX_LINE2D": lambda rng, E: np.concatenate(
+        [_rand_angle(rng, E), rng.uniform(0, 5, (E, 1)),
+         -np.ones((E, 2))], 1),
+    "VERTEX_ODOM_DIFFERENTIAL": lambda rng, E: np.array(
+        [1.0, 1.0, 0.5]) + 0.05 * rng.standard_normal((E, 3)),
+    "VERTEX_SIM3:EXPMAP": lambda rng, E: np.concatenate(
+        [_rand_sim3(rng, E), np.tile([300.0, 310.0, 160.0, 120.0], (E, 2))
+         + rng.standard_normal((E, 8))], 1),
+}
+_CHECK_STATES["VERTEX_SIM3:EXPMAP:FIXSCALE"] = \
+    _CHECK_STATES["VERTEX_SIM3:EXPMAP"]
+
+
+def _in_front(rng, E):
+    """Points at depth 2-8 on the optical axis' side of a camera frame."""
+    return np.concatenate([rng.standard_normal((E, 2)),
+                           rng.uniform(2, 8, (E, 1))], 1)
+
+
+def _check_inputs(torch, et, rng, E):
+    """Valid random ``(states, measurement, parameter)`` of ``E`` edges of
+    ``et`` (float64 numpy): unit quaternions, Plücker lines, unit plane
+    normals, positive scales, points in front of their camera."""
+    from g2o_tpu_torch.ops import lie
+
+    states = [_CHECK_STATES[vt.name](rng, E) for vt in et.vertex_types]
+    meas = {7: _rand_se3, 8: _rand_sim3}.get(et.meas_dim, lambda r, n: (
+        r.standard_normal((n, et.meas_dim))))(rng, E)
+    if et.name == "EDGE_SE3_LINE3D":
+        meas = _rand_line3d(rng, E)
+    elif et.name == "EDGE_SE3_PLANE_CALIB":
+        meas = _rand_plane(rng, E)
+    elif et.name == "EDGE_SE2_ODOM_DIFFERENTIAL_CALIB":
+        meas[:, 2] = rng.uniform(0.1, 1.0, E)        # dt
+        meas[::10, 1] = meas[::10, 0]                # straight motion
+    param = np.zeros((E, 0))
+    if et.param_dim:
+        cam = np.tile([300.0, 310.0, 160.0, 120.0], (E, 1))
+        param = {7: lambda: _rand_se3(rng, E, 0.2),
+                 14: lambda: np.concatenate([_rand_se3(rng, E, 0.2),
+                                             _rand_se3(rng, E, 0.2)], 1),
+                 11: lambda: np.concatenate([_rand_se3(rng, E, 0.2), cam],
+                                            1)}[et.param_dim]()
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+    if et.name in ("EDGE_PROJECT_DEPTH", "EDGE_PROJECT_DISPARITY"):
+        # landmark = (X O) * p_camera
+        sensor = lie.se3_compose(T(states[0]), T(param[:, :7]))
+        states[1] = lie.se3_act(sensor, T(_in_front(rng, E))).numpy()
+    elif et.name == "EDGE_PROJECT_SIM3_XYZ:EXPMAP":
+        s = T(states[1][:, :8])
+        states[0] = lie.sim3_act(lie.sim3_inverse(s),
+                                 T(_in_front(rng, E))).numpy()
+    elif et.name == "EDGE_PROJECT_INVERSE_SIM3_XYZ:EXPMAP":
+        states[0] = lie.sim3_act(T(states[1][:, :8]),
+                                 T(_in_front(rng, E))).numpy()
+    return states, meas, param
+
+
+def _sim3_w_inputs(torch, rng, E):
+    """EDGE_SIM3 inputs whose error ``Z S1 S2^-1`` is ``exp(xi)`` with
+    ``(|sigma|, |omega|)`` of each case of ``SIM3_W_CASES`` (``E`` edges
+    each, random signs and axes), and the ``xi``."""
+    from g2o_tpu_torch.ops import lie
+
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+    xi = []
+    for sig, om in SIM3_W_CASES:
+        x = np.concatenate([om * _unit(rng, E, 3),
+                            0.1 * rng.standard_normal((E, 3)),
+                            sig * rng.choice([-1.0, 1.0], (E, 1))], 1)
+        xi.append(x)
+    xi = np.concatenate(xi)
+    n = xi.shape[0]
+    s1 = _CHECK_STATES["VERTEX_SIM3:EXPMAP"](rng, n)
+    s2 = _CHECK_STATES["VERTEX_SIM3:EXPMAP"](rng, n)
+    z = lie.sim3_compose(lie.sim3_exp(T(xi)), lie.sim3_compose(
+        T(s2[:, :8]), lie.sim3_inverse(T(s1[:, :8]))))
+    return [s1, s2], z.numpy(), np.zeros((n, 0)), xi
+
+
+def check_types_phase(torch):
+    """``[check_types]``: every edge type of this slice's libraries —
+    residual and ``torch.func`` Jacobians at ``CHECK_TYPES_EDGES`` random
+    valid edges on the card in f64 against the same function on CPU
+    tensors, within 1e-10 relative (max |Δ| over max |CPU|), and every
+    value finite; then the Sim3 edge at errors on both sides of
+    ``_sim3_W``'s 1e-7 thresholds, within ``SIM3_W_LIMIT``."""
+    from g2o_tpu_torch.core.problem import residuals_and_jacobians
+    from g2o_tpu_torch.core.types import EdgeType
+    from g2o_tpu_torch.types import (icp, sclam2d, sim3, slam2d_addons,
+                                     slam3d, slam3d_addons)
+
+    t0 = time.perf_counter()
+    types = [slam3d.EdgeSE3PointXYZ, slam3d.EdgePointXYZ,
+             slam3d.EdgeXYZPrior, slam3d.EdgeSE3Offset,
+             slam3d.EdgeSE3PointXYZDepth, slam3d.EdgeSE3PointXYZDisparity,
+             slam3d.make_edge_se3_lots_of_xyz(2)]
+    for mod in (slam3d_addons, slam2d_addons, sclam2d, icp, sim3):
+        types += [v for v in vars(mod).values() if isinstance(v, EdgeType)]
+    rng = np.random.default_rng(SIM_START_SEED + 1)
+    cases = [(et.name, et, _check_inputs(torch, et, rng, CHECK_TYPES_EDGES))
+             for et in dict.fromkeys(types)]
+    w_in = _sim3_w_inputs(torch, rng, 1000)
+    cases.append(("EDGE_SIM3:EXPMAP@W_thresholds", sim3.EdgeSim3, w_in[:3]))
+
+    def run(et, inp, dev):
+        states, meas, param = (tuple(torch.as_tensor(a, dtype=torch.float64,
+                                                     device=dev)
+                                     for a in inp[0]),) + tuple(
+            torch.as_tensor(a, dtype=torch.float64, device=dev)
+            for a in inp[1:])
+        e, Js = residuals_and_jacobians(et, states, meas, param)
+        return [e.cpu()] + [J.cpu() for J in Js]
+
+    errs = {}
+    for label, et, inp in cases:
+        got, want = run(et, inp, "cuda"), run(et, inp, "cpu")
+        rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-300)) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got + want)
+        errs[label] = rel if finite else math.inf
+    w_rel = errs.pop("EDGE_SIM3:EXPMAP@W_thresholds")
+    worst = max(errs.values())
+    e_w = run(sim3.EdgeSim3, w_in[:3], "cuda")[0].numpy()
+    xi_err = float(np.abs(e_w - w_in[3]).max())
+    phase("check_types", types=len(errs), edges_per_type=CHECK_TYPES_EDGES,
+          max_rel_diff=f"{worst:.3e}", limit="1e-10",
+          worst=max(errs, key=errs.get),
+          sim3_w_cases=";".join(f"{s:g}/{o:g}" for s, o in SIM3_W_CASES),
+          sim3_w_rel_diff=f"{w_rel:.3e}", sim3_w_limit=SIM3_W_LIMIT,
+          sim3_w_log_error=f"{xi_err:.3e}",
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          per_type=";".join(f"{k}:{v:.1e}" for k, v in errs.items()))
+    if not (worst <= 1e-10 and w_rel <= SIM3_W_LIMIT):
+        raise RuntimeError(f"[check_types] card against CPU: {errs}, "
+                           f"Sim3 thresholds {w_rel}")
+
+
+def sim_phase(torch, g2o, ck, wrappers, times):
+    """Phase 12; returns the launch counts of its two main paths."""
+    check_types_phase(torch)
+    by_path = {}
+    for name in SIM_SCENES:
+        scene = load_sim(torch, g2o, name)
+        by_path[f"main_path_{name}"] = sim_path_phase(
+            torch, g2o, ck, wrappers, name, scene, times)
+        del scene
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     import torch
 
@@ -2077,6 +2525,7 @@ def main():
     by_path.update(manhattan_path_phase(torch, g2o, wrappers))
     by_path.update(sba_path_phase(torch, g2o, wrappers, sba))
     by_path.update(api_phase(torch, g2o, wrappers, implicit, sba))
+    by_path.update(sim_phase(torch, g2o, ck, wrappers, times))
     # a new kernel's launches are its wrappers' launches
     for counts in by_path.values():
         for k, ws in NEW_KERNELS.items():

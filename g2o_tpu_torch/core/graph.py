@@ -50,6 +50,10 @@ class Graph:
         self._vertices: dict[int, _VertexRec] = {}
         self._edges: list[_EdgeRec] = []
         self._parameters: dict[int, np.ndarray] = {}
+        # raw sensor-data payload lines attached to vertices (reference
+        # ``Data``/``DataContainer``, ``hyper_graph.h:95,119``, e.g.
+        # ROBOTLASER1), kept verbatim so that a save writes them back
+        self._vertex_data: dict[int, list] = {}
 
     # -- vertices ----------------------------------------------------------
 
@@ -89,14 +93,25 @@ class Graph:
                 f"for {rec.vtype.name}, got {est.shape[0]}")
         rec.estimate = est
 
+    def add_vertex_data(self, vid: int, raw_line: str):
+        """Attach a raw data payload line (e.g. a laser scan) to a vertex."""
+        if vid not in self._vertices:
+            raise ValueError(f"unknown vertex id {vid}")
+        self._vertex_data.setdefault(vid, []).append(raw_line)
+
+    def vertex_data(self, vid: int):
+        return self._vertex_data.get(vid, [])
+
     def remove_vertex(self, vid: int):
-        """Remove a vertex and every edge incident to it (reference
-        ``HyperGraph::removeVertex`` detaches edges); False when there is
-        no such vertex."""
+        """Remove a vertex, every edge incident to it (reference
+        ``HyperGraph::removeVertex`` detaches edges) and its data payloads,
+        which a later vertex of the same id must not inherit; False when
+        there is no such vertex."""
         if vid not in self._vertices:
             return False
         self._edges = [e for e in self._edges if vid not in e.vids]
         del self._vertices[vid]
+        self._vertex_data.pop(vid, None)
         return True
 
     @property

@@ -212,39 +212,6 @@ class Problem:
                 states.append(estimates[t][batch.vidx[:, s]])
         return tuple(states)
 
-    def _residuals_and_jacobians(self, et: EdgeType, batch: EdgeBatchData,
-                                 states):
-        """``e (E, r)`` at the given per-edge ``states`` and the slot
-        Jacobians ``(E, r, d_s)`` of ``e(x ⊞ δ)`` at ``δ = 0``.  The error is
-        evaluated at the states themselves, not at ``x ⊞ 0``: ``oplus``
-        renormalizes a quaternion that is unit only to the precision it was
-        read with."""
-        vts = tuple(et.vertex_types)
-        e = et.residual(states, batch.meas, batch.param)
-        E = batch.vidx.shape[0]
-        r = et.residual_dim
-        zeros = tuple(torch.zeros((E, vt.tangent_dim), dtype=self.dtype,
-                                  device=self.device) for vt in vts)
-
-        def f(*deltas):
-            news = tuple(vt.oplus(x, d) for vt, x, d in zip(vts, states, deltas))
-            return et.residual(news, batch.meas, batch.param)
-
-        if r < sum(vt.tangent_dim for vt in vts):
-            _, pull = vjp(f, *zeros)
-            basis = torch.eye(r, dtype=e.dtype, device=e.device)[:, None, :]
-            rows = vmap(pull)(basis.expand(r, E, r))    # per slot (r, E, d_s)
-            return e, tuple(R.permute(1, 0, 2) for R in rows)
-        Js = []
-        for s, vt in enumerate(vts):
-            def push(t, s=s):
-                tangents = tuple(t if j == s else z for j, z in enumerate(zeros))
-                return jvp(f, zeros, tangents)[1]
-            d = vt.tangent_dim
-            basis = torch.eye(d, dtype=e.dtype, device=e.device)[:, None, :]
-            Js.append(vmap(push)(basis.expand(d, E, d)).permute(1, 2, 0))
-        return e, tuple(Js)
-
     def _robustify(self, name, batch, e2):
         uk = self.uniform_kernel.get(name)
         if uk is not None:
@@ -344,8 +311,9 @@ class Problem:
                 chi2_r, chi2_p = chi2_r + c_r, chi2_p + c_p
                 jacs[name], weights[name], errors[name] = Jt, Wt, e_t
                 continue
-            e, Js = self._residuals_and_jacobians(
-                et, batch, self._states(et, batch, estimates))
+            e, Js = residuals_and_jacobians(
+                et, self._states(et, batch, estimates), batch.meas,
+                batch.param)
             # zero Jacobian columns of fixed vertices — the masking
             # analogue of hessianIndex == -1 (sparse_optimizer.cpp:179-188)
             fm = data.free_mask[name]
@@ -382,8 +350,9 @@ class Problem:
         over the contracted axis, in the JAX package's order."""
         spec = self.bucket_specs[name]
         plan = data.plans[name]
-        e, Js = self._residuals_and_jacobians(
-            et, batch, self._states(et, batch, estimates, name, data.plans))
+        e, Js = residuals_and_jacobians(
+            et, self._states(et, batch, estimates, name, data.plans),
+            batch.meas, batch.param)
         fm_t = plan["free_mask_t"]
         Jt = tuple(J.permute(1, 2, 0).contiguous() * fm_t[s]     # (r, d, E)
                    for s, J in enumerate(Js))
@@ -527,6 +496,41 @@ class Problem:
             free = 1.0 - data.fixed[t].to(self.dtype)
             out[t] = vt.oplus(estimates[t], blocks[t] * free[:, None])
         return out
+
+
+def residuals_and_jacobians(et: EdgeType, states, meas, param):
+    """``e (E, r)`` of edge type ``et`` at the per-edge ``states`` (a tuple
+    of ``(E, rep)`` tensors, one per slot) and the slot Jacobians
+    ``(E, r, d_s)`` of ``e(x ⊞ δ)`` at ``δ = 0``.  The error is evaluated
+    at the states themselves, not at ``x ⊞ 0``: ``oplus`` renormalizes a
+    quaternion that is unit only to the precision it was read with.
+    Reverse mode (one ``vjp``, the ``r`` cotangent rows under ``vmap``)
+    when the residual is shorter than the tangent, else forward mode."""
+    vts = tuple(et.vertex_types)
+    e = et.residual(states, meas, param)
+    E = states[0].shape[0]
+    r = et.residual_dim
+    zeros = tuple(torch.zeros((E, vt.tangent_dim), dtype=e.dtype,
+                              device=e.device) for vt in vts)
+
+    def f(*deltas):
+        news = tuple(vt.oplus(x, d) for vt, x, d in zip(vts, states, deltas))
+        return et.residual(news, meas, param)
+
+    if r < sum(vt.tangent_dim for vt in vts):
+        _, pull = vjp(f, *zeros)
+        basis = torch.eye(r, dtype=e.dtype, device=e.device)[:, None, :]
+        rows = vmap(pull)(basis.expand(r, E, r))        # per slot (r, E, d_s)
+        return e, tuple(R.permute(1, 0, 2) for R in rows)
+    Js = []
+    for s, vt in enumerate(vts):
+        def push(t, s=s):
+            tangents = tuple(t if j == s else z for j, z in enumerate(zeros))
+            return jvp(f, zeros, tangents)[1]
+        d = vt.tangent_dim
+        basis = torch.eye(d, dtype=e.dtype, device=e.device)[:, None, :]
+        Js.append(vmap(push)(basis.expand(d, E, d)).permute(1, 2, 0))
+    return e, tuple(Js)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,4 +1,4 @@
-"""SE(2) and SO(3)/SE(3) primitives on tensors — port of
+"""SE(2), SO(3)/SE(3) and Sim(3) primitives on tensors — port of
 ``g2o_tpu/ops/lie.py``.
 
 Every function works on the *last* axis, so it applies unchanged to a
@@ -16,6 +16,8 @@ and the reference framework:
   ``[t, q.vec]`` with ``q`` normalized to ``w > 0``.
 * The SE3 vertex update is a right multiplication
   ``X <- X * fromVectorMQT(delta)``.
+* Sim3 state is ``(tx, ty, tz, qx, qy, qz, qw, s)``; its tangent is
+  ``[omega, upsilon, sigma]`` (``g2o/types/sim3/sim3.h``).
 
 Double-``where`` guards: reverse-mode autodiff SUMS cotangents over both
 branches of a ``torch.where``, so a ``sqrt``/``arctan2`` evaluated at 0 in
@@ -337,3 +339,152 @@ def se3quat_log(x):
     Vinv = _so3_left_jacobian_inv(omega)
     upsilon = torch.einsum("...ij,...j->...i", Vinv, se3_t(x))
     return torch.cat([omega, upsilon], dim=-1)
+
+
+# --------------------------------------------------------------------------- #
+# Sim(3) — state vector (tx, ty, tz, qx, qy, qz, qw, s)
+# --------------------------------------------------------------------------- #
+
+def sim3_identity(shape=(), dtype=torch.float64, device=None):
+    x = torch.zeros(shape + (8,), dtype=dtype, device=device)
+    x[..., 6] = 1.0
+    x[..., 7] = 1.0
+    return x
+
+
+def sim3_t(x):
+    return x[..., :3]
+
+
+def sim3_q(x):
+    return x[..., 3:7]
+
+
+def sim3_s(x):
+    return x[..., 7]
+
+
+def sim3_make(t, q, s):
+    return torch.cat([t, q, s[..., None]], dim=-1)
+
+
+def sim3_compose(a, b):
+    """a * b: (R_a s_a, t_a) ∘ (R_b s_b, t_b)."""
+    s = sim3_s(a) * sim3_s(b)
+    q = quat_mul(sim3_q(a), sim3_q(b))
+    t = sim3_s(a)[..., None] * quat_rotate(sim3_q(a), sim3_t(b)) + sim3_t(a)
+    return sim3_make(t, q, s)
+
+
+def sim3_inverse(a):
+    qi = quat_conj(sim3_q(a))
+    si = 1.0 / sim3_s(a)
+    t = -si[..., None] * quat_rotate(qi, sim3_t(a))
+    return sim3_make(t, qi, si)
+
+
+def sim3_act(a, p):
+    return sim3_s(a)[..., None] * quat_rotate(sim3_q(a), p) + sim3_t(a)
+
+
+def _sim3_W(omega, sigma, s):
+    """W = integral_0^1 e^{u sigma} R(u theta) du, the Sim3 translation
+    mixing matrix (reference ``g2o/types/sim3/sim3.h:75-160``), as
+    A*I + B*hat + C*hat^2 with hat = hat(omega) unnormalized:
+
+        A = (e^s - 1)/s
+        B = (e^s(s sin t - t cos t) + t) / (t (s^2 + t^2))
+        C = (A - (e^s(s cos t + t sin t) - s)/(s^2 + t^2)) / t^2
+
+    with the limits B -> (e^s(s-1)+1)/s^2, C -> (e^s(s^2/2-s+1)-1)/s^3 as
+    theta -> 0, and B -> 1/2, C -> 1/6 as both go to 0.  The small
+    branches keep their sigma-linear terms, so d/dsigma inside them is
+    exact to first order (a constant-only branch zeroes the
+    scale-translation coupling near convergence).  Every small-value guard
+    is a double ``where``."""
+    theta2 = torch.sum(omega * omega, dim=-1)
+    O = so3_hat(omega)
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(O.shape)
+
+    eps = 1e-7
+    sigma_small = torch.abs(sigma) < eps
+    theta_small = theta2 < eps * eps
+    safe_sigma = torch.where(sigma_small, 1.0, sigma)
+    safe_theta = torch.sqrt(torch.where(theta_small, 1.0, theta2))
+
+    # case 1: sigma ~ 0, theta ~ 0 (theta-quadratic terms omitted: their
+    # omega-derivatives carry a factor omega and vanish in the branch)
+    A1 = 1.0 + 0.5 * sigma
+    B1 = 0.5 + sigma / 3.0
+    C1 = 1.0 / 6.0 + sigma / 8.0
+    # case 2: sigma ~ 0, theta != 0 (the SE3 V matrix at sigma = 0)
+    st_, ct_ = torch.sin(safe_theta), torch.cos(safe_theta)
+    A2 = 1.0 + 0.5 * sigma
+    B2 = (1.0 - ct_) / (safe_theta * safe_theta) \
+        + sigma * (st_ - safe_theta * ct_) / (safe_theta ** 3)
+    C2 = (safe_theta - st_) / (safe_theta ** 3) \
+        + sigma * (0.5 - (safe_theta * st_ + ct_ - 1.0)
+                   / (safe_theta * safe_theta)) / (safe_theta * safe_theta)
+    # case 3: sigma != 0, theta ~ 0
+    A3 = (s - 1.0) / safe_sigma
+    B3 = (s * (safe_sigma - 1.0) + 1.0) / (safe_sigma * safe_sigma)
+    C3 = (s * (0.5 * safe_sigma * safe_sigma - safe_sigma + 1.0)
+          - 1.0) / (safe_sigma ** 3)
+    # case 4: general
+    a_ = s * torch.sin(safe_theta)
+    b_ = s * torch.cos(safe_theta)
+    c_ = safe_theta * safe_theta + safe_sigma * safe_sigma
+    A4 = (s - 1.0) / safe_sigma
+    B4 = (a_ * safe_sigma + (1.0 - b_) * safe_theta) / (safe_theta * c_)
+    C4 = (A4 - ((b_ - 1.0) * safe_sigma + a_ * safe_theta) / c_) / (
+        safe_theta * safe_theta)
+
+    def pick(x1, x2, x3, x4):
+        return torch.where(sigma_small, torch.where(theta_small, x1, x2),
+                           torch.where(theta_small, x3, x4))
+
+    A = pick(A1, A2, A3, A4)
+    B = pick(B1, B2, B3, B4)
+    C = pick(C1, C2, C3, C4)
+    return (A[..., None, None] * eye + B[..., None, None] * O
+            + C[..., None, None] * (O @ O))
+
+
+def _inv3(M):
+    """Closed-form 3x3 inverse (adjugate over determinant), so that the
+    Jacobians through it are the JAX package's."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A_ = e * i - f * h
+    B_ = -(d * i - f * g)
+    C_ = d * h - e * g
+    det = a * A_ + b * B_ + c * C_
+    adj = torch.stack([
+        torch.stack([A_, -(b * i - c * h), b * f - c * e], dim=-1),
+        torch.stack([B_, a * i - c * g, -(a * f - c * d)], dim=-1),
+        torch.stack([C_, -(a * h - b * g), a * e - b * d], dim=-1),
+    ], dim=-2)
+    return adj / det[..., None, None]
+
+
+def sim3_exp(xi):
+    """Sim3 exponential, xi = [omega(3), upsilon(3), sigma] -> state vector
+    (the reference ``Sim3(const Vector7&)``, ``g2o/types/sim3/sim3.h:75-160``:
+    rotation, translation, log-scale)."""
+    omega, upsilon, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    q = so3_exp(omega)
+    W = _sim3_W(omega, sigma, s)
+    t = torch.einsum("...ij,...j->...i", W, upsilon)
+    return sim3_make(t, q, s)
+
+
+def sim3_log(x):
+    """Inverse of :func:`sim3_exp` (the same W, the closed-form inverse)."""
+    omega = so3_log(sim3_q(x))
+    sigma = torch.log(sim3_s(x))
+    s = sim3_s(x)
+    W = _sim3_W(omega, sigma, s)
+    upsilon = torch.einsum("...ij,...j->...i", _inv3(W), sim3_t(x))
+    return torch.cat([omega, upsilon, sigma[..., None]], dim=-1)

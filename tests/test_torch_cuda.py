@@ -4,7 +4,8 @@ PCG (per-solve and, on a manhattan graph, ``every_k``), supernodal, host
 Cholesky, explicit and implicit Schur (BAL; and the sba problems of
 ``chip_smoke.py`` on the general path and the bucketed multi-observer
 branch), CGLS, Dogleg and sparse Cholesky paths on the card against the
-same paths on the CPU.
+same paths on the CPU; the edge types of the remaining type libraries and
+the 2D/3D simulators' scenes on the card against the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
 This file imports neither JAX nor ``g2o_tpu``, so it also runs on a machine
@@ -916,3 +917,138 @@ def test_sparse_cholesky_on_card_matches_cpu():
     for v in covs[0]:
         assert np.abs(covs[1][v] - covs[0][v]).max() <= \
             1e-9 * np.abs(covs[0][v]).max()
+
+
+# --------------------------------------------------------------------------- #
+# the remaining type libraries and the simulators
+# --------------------------------------------------------------------------- #
+
+def _slice_edge_types():
+    """Every edge type of the slam3d additions, slam3d_addons,
+    slam2d_addons, sclam2d, icp and sim3, by name."""
+    from g2o_tpu_torch.core.types import EdgeType
+    from g2o_tpu_torch.types import (icp, sclam2d, sim3, slam2d_addons,
+                                     slam3d, slam3d_addons)
+
+    types = [slam3d.EdgeSE3PointXYZ, slam3d.EdgePointXYZ,
+             slam3d.EdgeXYZPrior, slam3d.EdgeSE3Offset,
+             slam3d.EdgeSE3PointXYZDepth, slam3d.EdgeSE3PointXYZDisparity,
+             slam3d.make_edge_se3_lots_of_xyz(2)]
+    for mod in (slam3d_addons, slam2d_addons, sclam2d, icp, sim3):
+        types += [v for v in vars(mod).values() if isinstance(v, EdgeType)]
+    return {et.name: et for et in types}
+
+
+SLICE_EDGE_TYPES = _slice_edge_types()
+
+
+def _edge_on(et, inp, device):
+    from g2o_tpu_torch.core.problem import residuals_and_jacobians
+
+    states = tuple(torch.as_tensor(a, dtype=torch.float64, device=device)
+                   for a in inp[0])
+    meas, param = (torch.as_tensor(a, dtype=torch.float64, device=device)
+                   for a in inp[1:3])
+    e, Js = residuals_and_jacobians(et, states, meas, param)
+    return [e.cpu()] + [J.cpu() for J in Js]
+
+
+def _rel(got, want):
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+               for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SLICE_EDGE_TYPES))
+def test_new_edge_type_on_card_matches_cpu(name):
+    """Residuals and ``torch.func`` Jacobians at 10⁴ random valid edges
+    (``chip_smoke.py``'s inputs: unit quaternions, Plücker lines, points in
+    front of their camera) on the card against the CPU: 1e-10, finite."""
+    _need_card()
+    from chip_smoke import _check_inputs
+
+    et = SLICE_EDGE_TYPES[name]
+    inp = _check_inputs(torch, et, np.random.default_rng(5), 10_000)
+    got, want = _edge_on(et, inp, "cuda"), _edge_on(et, inp, "cpu")
+    assert all(bool(torch.isfinite(a).all()) for a in got + want)
+    assert _rel(got, want) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_sim3_edge_at_the_w_thresholds_on_card_matches_cpu():
+    """The Sim3 edge with errors on both sides of ``_sim3_W``'s 1e-7
+    thresholds: the card's values are the CPU's within ``chip_smoke``'s
+    ``SIM3_W_LIMIT`` (the cancellation just above the σ threshold), and
+    the residual is log(exp(ξ)) = ξ to 1e-9."""
+    _need_card()
+    from chip_smoke import SIM3_W_LIMIT, _sim3_w_inputs
+
+    inp = _sim3_w_inputs(torch, np.random.default_rng(6), 200)
+    et = SLICE_EDGE_TYPES["EDGE_SIM3:EXPMAP"]
+    got, want = _edge_on(et, inp, "cuda"), _edge_on(et, inp, "cpu")
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert _rel(got, want) <= SIM3_W_LIMIT
+    assert np.abs(got[0].numpy() - inp[3]).max() <= 1e-9
+
+
+SIM_ALL = {
+    3: ("create_simulator3d", dict(
+        n_poses=200, n_landmarks=160, world_size=14.0, n_lines=12,
+        n_planes=6, seed=3, sensors=(
+            "odometry", "pose", "pose_offset", "se3prior", "trackxyz",
+            "depth", "disparity", "line3d", "plane"))),
+    2: ("create_simulator2d", dict(
+        n_poses=200, n_landmarks=60, world_size=20.0, n_segments=20,
+        n_lines=12, seed=3, sensors=(
+            "odometry", "pose", "pointxy", "bearing", "pointxy_offset",
+            "segment", "segment_line", "segment_pointline", "line2d"))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 2])
+def test_zero_noise_scene_on_card(dim):
+    """Every sensor at once with zero noise: chi2 ≤ 1e-10 on the card."""
+    _need_card()
+    from g2o_tpu_torch.sim import generators
+
+    make, kw = SIM_ALL[dim]
+    g = getattr(generators, make)(**kw, noise_scale=0.0)
+    p = g.compile(dtype=torch.float64, device="cuda")
+    assert float(p.chi2_fn(p.data, p.estimates)[0]) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 2])
+def test_simulated_scene_lm_on_card_matches_cpu(dim):
+    """8 LM iterations (float64) on a 200-pose scene with every sensor,
+    from the generator's estimates moved by seeded tangent noise:
+    ``SupernodalCholeskySolver`` in 3D, chunk2 PCG in 2D, whose K1/K2(/K3)
+    run on the card; the chi2 history is the CPU's to 1e-9 until LM stops
+    at the rounding floor, the final chi2 to 1e-9."""
+    _need_card()
+    from g2o_tpu_torch.sim import generators
+
+    make, kw = SIM_ALL[dim]
+    g = getattr(generators, make)(**kw)
+    runs, launches = [], []
+    for device in ("cpu", "cuda"):
+        p = g.compile(dtype=torch.float64, device=device)
+        dx = torch.as_tensor(0.05 * np.random.default_rng(100).normal(
+            size=p.total_dim), dtype=torch.float64, device=device)
+        p.set_estimates(p.apply_update_fn(p.data, p.estimates, dx))
+        solver = (g2o_tpu_torch.SupernodalCholeskySolver() if dim == 3 else
+                  g2o_tpu_torch.PCGSolver(max_iter=400, tol=1e-12,
+                                          precond="chunk2", chunk_size=4,
+                                          absolute_tolerance=False))
+        before = chol_kernels.chol_batched.launches
+        res = g2o_tpu_torch.optimize_fused(p, solver, 8)
+        launches.append(chol_kernels.chol_batched.launches - before)
+        runs.append(res)
+    assert launches[0] == 0 and launches[1] > 0
+    c0, c1 = (r["chi2_per_iteration"] for r in runs)
+    n = min(len(c0), len(c1))
+    assert n >= 4 and c0[0] > 10 * runs[0]["chi2_final"]
+    np.testing.assert_allclose(c1[:n], c0[:n], rtol=1e-9)
+    np.testing.assert_allclose(runs[1]["chi2_final"], runs[0]["chi2_final"],
+                               rtol=1e-9)

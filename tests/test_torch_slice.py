@@ -207,7 +207,11 @@ def test_port_imports_neither_jax_nor_g2o_tpu():
             "g2o_tpu_torch.core.optimizer, g2o_tpu_torch.core.lm_fused, "
             "g2o_tpu_torch.core.solvers.cgls, "
             "g2o_tpu_torch.core.solvers.sparse_chol, "
-            "g2o_tpu_torch.core.marginals, chip_smoke")
+            "g2o_tpu_torch.core.marginals, g2o_tpu_torch.types.slam3d, "
+            "g2o_tpu_torch.types.slam3d_addons, "
+            "g2o_tpu_torch.types.slam2d_addons, g2o_tpu_torch.types.sim3, "
+            "g2o_tpu_torch.types.sclam2d, g2o_tpu_torch.types.icp, "
+            "g2o_tpu_torch.types.data, g2o_tpu_torch.types, chip_smoke")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
