@@ -166,6 +166,30 @@ exits non-zero without printing a result:
     timed at the shapes that run gave them (the 2D coarse level (1, 1152,
     1152) also held on its real coarse matrix).
 
+13. the ``g2o`` command-line tool (``g2o_tpu_torch.apps.cli.main``, in
+    this process so that the kernel counts see its launches) and the
+    modules behind its modes: ``[cli_sphere]``, sphere2500 with ``-i 50
+    -solver lm_supernodal -robustKernel Huber -fused`` in f32 (the CLI
+    fixes vertex 0): chi2 within 1% of the reference g2o's, every chi2
+    finite, K1/K2/K3 launched, the written file's chi2 the summary's
+    within 1e-6; ``[cli_inc_manhattan]``, ``create_manhattan(3500,
+    seed=0)`` written to a file and replayed with ``-inc -update 10
+    -solver lm_pcg`` and a frozen chunk2 preconditioner in f32, with
+    ``-gt data/manhattan3500_ref_opt.g2o``: chi2 within 1% of a cold batch
+    ``optimize_fused`` over the same graph with the manhattan path's
+    solver, K1/K2 launched, ATE/RPE, ms per update, and K1/K2 timed at the
+    coarse shapes the updates gave them (``[kernels_inc]``);
+    ``[guess_linear_manhattan]``, ``-guessLinear -solver gn_host_chol
+    -fp64 -i 8`` on the same file: chi2 within 0.25 of the reference's
+    gn_var fixed point, and ``solve_slam2d_linear``'s poses on the card
+    the CPU's within 1e-8; ``[structure_only_ladybug]``: ladybug's points
+    moved by seeded noise, ``structure_only_refine`` in f64: no landmark's
+    chi2 up, the total cut 10x, each landmark's chi2 the CPU run's within
+    1e-10 and the points within the CPU run's own spread under a 1e-16
+    nudge of its start;
+    ``[write_debug]``: a failed LM step on card tensors writes the dump
+    with the JAX package's keys.
+
 Each main path also runs 5 LM iterations under ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
 untraced run's wall time per λ-trial, kernel launches per λ-trial and the
@@ -353,6 +377,49 @@ CHECK_TYPES_EDGES = 100_000
 SIM3_W_CASES = ((0.0, 0.0), (5e-8, 5e-8), (2e-7, 5e-8), (5e-8, 2e-7),
                 (2e-7, 2e-7), (1e-3, 0.3))
 SIM3_W_LIMIT = 1e-8
+
+# phase 13: the CLI runs.  The sphere run's iterations as phase 4; the
+# incremental replay as the reference's g2o_incremental demo (an update
+# every 10 vertices, one LM iteration each), with the frozen chunk2
+# preconditioner of the JAX package's incremental warm start; the cold batch
+# it is held to (within 1%) is the manhattan path's every_k LM.  The
+# structure-only run moves ladybug's points by seeded noise (sigma 0.05 cuts
+# chi2 33x on the CPU) and refines them for 10 iterations
+CLI_INC_ARGS = ["-inc", "-update", "10", "-incIterations", "1",
+                "-solver", "lm_pcg", "-solverProperties",
+                "precond=chunk2,chunk_size=16,precond_mode=frozen"]
+MANHATTAN_REF_OPT = os.path.join(HERE, "data", "manhattan3500_ref_opt.g2o")
+# the replay's final chi2 is also held within 0.5% of the reference's gn_var
+# fixed point (the cold batch LM plateaus up to 1% above it), and its ATE
+# against the reference's optimum to INC_ATE_LIMIT: 4.776 on an NVIDIA H100
+# 80GB HBM3 (700 W), where the batch LM stays at 35.8-36.3 from a start of
+# 36.25 (pose graphs have flat modes that chi2 barely sees)
+INC_GN_FACTOR = 1.005
+INC_ATE_LIMIT = 5.0
+# [trace_cli_inc]: the update path through the API over a window at the end
+# of the replay: the first INC_WINDOW_START vertices added at once and
+# brought near their optimum, then INC_WINDOW_TIMED timed updates of 10
+# vertices (about three recompiles) and INC_WINDOW_TRACED traced ones that
+# do not recompile
+INC_WINDOW_START = 3000
+INC_WINDOW_TIMED = 39
+INC_WINDOW_TRACED = 5
+STRUCTURE_SIGMA = 0.05
+STRUCTURE_SEED = 13
+STRUCTURE_ITERS = 10
+# the structure-only points card vs CPU, relative to the largest coordinate.
+# A point seen from a short baseline has a nearly flat depth direction along
+# which a one-ulp change moves the result by ~1e-9: the CPU run itself moves
+# by 3.85e-9 when its start is nudged by 1e-16, and the card's index_add_
+# sums in another order.  Card vs CPU read 1.51e-9-3.83e-9 in four runs on
+# an NVIDIA H100 80GB HBM3 (700 W): the limit is 2.6x the largest.  Each
+# landmark's chi2 is held to 1e-10
+STRUCTURE_POINTS_LIMIT = 1e-8
+# the keys of the JAX package's debug dump (g2o_tpu/utils/debug_dump.py) of
+# a pose graph of VERTEX_SE2 vertices
+DEBUG_KEYS = {"iteration", "lambda", "reason", "chi2", "b",
+              "H_diag_VERTEX_SE2", "fixed_VERTEX_SE2",
+              "tangent_dim_VERTEX_SE2"}
 
 # the shape each kernel's entry in the JSON line reports
 PRIMARY = {"chol_batched": (1, 960, 960),
@@ -2490,6 +2557,418 @@ def sim_phase(torch, g2o, ck, wrappers, times):
     return by_path
 
 
+def _cli(cli, args):
+    """``cli.main(args)`` in this process with its standard output and
+    error captured; raises unless it returns 0.  Returns ``(stdout,
+    stderr, seconds)``."""
+    import contextlib
+    import io as _io
+
+    out, err = _io.StringIO(), _io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(args)
+    except SystemExit as exc:          # argparse refused the arguments
+        rc = exc.code
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli {args} returned {rc}: "
+                           f"{err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue(), dt
+
+
+def _final_chi2(err):
+    import re
+
+    m = re.search(r"final chi2= (\S+) \(([^)]*)\)", err)
+    if m is None:
+        raise RuntimeError(f"no final chi2 line in: {err[-2000:]}")
+    return float(m.group(1)), m.group(2)
+
+
+def cli_sphere_phase(torch, g2o, cli, wrappers, tmp):
+    """``[cli_sphere]``: sphere2500 through the CLI on supernodal, f32."""
+    from g2o_tpu_torch.io import g2o_format
+
+    out, stats, summary = (os.path.join(tmp, f) for f in
+                           ("sphere_out.g2o", "stats.jsonl", "summary.jsonl"))
+    args = ["-i", "50", "-solver", "lm_supernodal", "-robustKernel", "Huber",
+            "-robustKernelWidth", "1", "-fused", "-o", out, "-stats", stats,
+            "-summary", summary, DATASET]
+    for w in wrappers.values():
+        w.launches = 0
+    _, err, wall = _cli(cli, args)
+    launches = _launches(wrappers)
+    rows = [json.loads(r) for r in open(stats)]
+    summ = json.loads(open(summary).read().splitlines()[-1])
+    # the same command again: its first λ-trials no longer pay the
+    # supernodal path's first-call costs (phase 4's runs follow a warm-up)
+    warm_stats = os.path.join(tmp, "warm_stats.jsonl")
+    _cli(cli, args[:-7] + ["-stats", warm_stats, "-summary", summary,
+                           DATASET])
+    warm = json.loads(open(summary).read().splitlines()[-1])
+    warm_trials = max(sum(json.loads(r)["levenberg_iterations"]
+                          for r in open(warm_stats)), 1)
+    chis = [r["chi2"] for r in rows] + [summ["final_chi2"]]
+    trials = max(sum(r["levenberg_iterations"] for r in rows), 1)
+    g = g2o_format.load(out)
+    g.set_robust_kernel("Huber", 1.0)
+    p = g.compile(dtype=torch.float32, device="cuda")
+    chi_back = float(p.chi2_fn(p.data, p.estimates)[0])
+    rel = abs(chi_back - summ["final_chi2"]) / summ["final_chi2"]
+    phase("cli_sphere", iterations=summ["iterations"], lm_trials=trials,
+          chi2_0=f"{chis[0]:.4f}", chi2_final=f"{summ['final_chi2']:.4f}",
+          bound=f"{CHI2_BOUND:.2f}",
+          ms_per_lambda_trial=f"{summ['wall_s'] * 1e3 / trials:.3f}",
+          warm_ms_per_lambda_trial=(
+              f"{warm['wall_s'] * 1e3 / warm_trials:.3f}"),
+          warm_lm_trials=warm_trials,
+          warm_chi2_final=f"{warm['final_chi2']:.4f}",
+          cli_wall_s=f"{wall:.3f}", reload_chi2=f"{chi_back:.4f}",
+          reload_rel_diff=f"{rel:.3e}", gauge=err.count("fixed by node 0"),
+          **{f"{k}_per_lambda_trial": f"{launches[k] / trials:.2f}"
+             for k in KERNELS[:3]},
+          **{f"launches_{k}": launches[k] for k in KERNELS[:3]})
+    if not all(math.isfinite(c) for c in chis):
+        raise RuntimeError(f"cli_sphere: non-finite chi2 {chis}")
+    if not summ["final_chi2"] <= CHI2_BOUND:
+        raise RuntimeError(f"cli_sphere: chi2 {summ['final_chi2']} above "
+                           f"{CHI2_BOUND}")
+    if any(launches[k] < 1 for k in KERNELS[:3]):
+        raise RuntimeError(f"cli_sphere: K1/K2/K3 not all launched: "
+                           f"{launches}")
+    if not rel <= 1e-6:
+        raise RuntimeError(f"cli_sphere: the written file's chi2 {chi_back} "
+                           f"is not the summary's {summ['final_chi2']}")
+    return launches
+
+
+def cli_inc_phase(torch, g2o, cli, ck, wrappers, times, path):
+    """``[cli_inc_manhattan]``: the incremental replay of manhattan3500
+    through the CLI, f32, held to a cold batch run, to the reference's
+    gn_var and, in ATE, to the reference's optimum; then K1/K2 at every
+    shape the replay launched them at that no phase before holds
+    (``[kernels_inc]``).  Returns ``(launches, recompiles, replay s)``."""
+    import re
+
+    from g2o_tpu_torch.io import g2o_format
+
+    out = path.replace(".g2o", "_inc.g2o")
+    chol_wrappers = (ck.chol_batched, ck.solve_lower_batched)
+    for w in wrappers.values():
+        w.launches = 0
+    for w in chol_wrappers:
+        w.shapes.clear()
+    sout, err, wall = _cli(cli, CLI_INC_ARGS + [
+        "-gt", MANHATTAN_REF_OPT, "-o", out, path])
+    launches = _launches(wrappers)
+    shapes = {w.__name__: dict(w.shapes) for w in chol_wrappers}
+    chi, facts = _final_chi2(err)
+    m = re.search(r"(\d+) vertices, (\d+) recompiles, (\S+) s", facts)
+    n_vertices, recompiles, inc_s = int(m[1]), int(m[2]), float(m[3])
+    ate = re.search(r"ATE\(rmse\)= (\S+)\s+RPE\(rmse\)= (\S+)", sout)
+    updates = n_vertices // 10
+
+    # the cold batch run over the same final graph: the manhattan path's
+    # every_k LM from the file's estimates
+    g = g2o_format.load(path)
+    p = g.compile(dtype=torch.float32, device="cuda")
+    batch = g2o.optimize_fused(p, g2o.PCGSolver(
+        max_iter=32, tol=1e-2, precond="chunk2", chunk_size=16,
+        precond_mode="every_k", precond_refresh_every=8), 60)
+    rel = abs(chi - batch["chi2_final"]) / batch["chi2_final"]
+    from g2o_tpu_torch.utils.metrics import ate as ate_fn
+    ref = g2o_format.load(MANHATTAN_REF_OPT)
+    est = p.estimates_by_vid()
+    vids = sorted(est)
+    batch_ate = ate_fn(np.stack([est[v] for v in vids]),
+                       np.stack([ref.vertex(v).estimate for v in vids]))
+    gn_bound = INC_GN_FACTOR * MANHATTAN_GN
+    phase("cli_inc_manhattan", vertices=n_vertices, updates=updates,
+          recompiles=recompiles, chi2_final=f"{chi:.4f}",
+          batch_chi2=f"{batch['chi2_final']:.4f}", rel_diff=f"{rel:.3e}",
+          limit="1e-2", gn_bound=f"{gn_bound:.4f}",
+          ate_rmse=ate[1] if ate else None, ate_limit=INC_ATE_LIMIT,
+          rpe_rmse=ate[2] if ate else None,
+          batch_ate_rmse=f"{batch_ate:.6f}",
+          ms_per_update=f"{inc_s * 1e3 / max(updates, 1):.3f}",
+          inc_wall_s=f"{inc_s:.3f}", cli_wall_s=f"{wall:.3f}",
+          coarse_shapes=";".join(f"{n}:{c}" for (_, n, _), c in sorted(
+              shapes["chol_batched"].items())),
+          **{f"launches_{k}": launches[k] for k in KERNELS[:3]})
+    if not math.isfinite(chi) or rel > 1e-2:
+        raise RuntimeError(f"cli_inc_manhattan: chi2 {chi} not within 1% of "
+                           f"the batch run's {batch['chi2_final']}")
+    if not chi <= gn_bound:
+        raise RuntimeError(f"cli_inc_manhattan: chi2 {chi} above {gn_bound}")
+    if any(launches[k] < 1 for k in KERNELS[:2]):
+        raise RuntimeError(f"cli_inc_manhattan: K1/K2 not launched: "
+                           f"{launches}")
+    if ate is None:
+        raise RuntimeError("cli_inc_manhattan: no ATE/RPE line")
+    if not float(ate[1]) <= INC_ATE_LIMIT:
+        raise RuntimeError(f"cli_inc_manhattan: ATE {ate[1]} above "
+                           f"{INC_ATE_LIMIT}")
+    # K1/K2 at every shape the replay gave them that no phase holds yet,
+    # each checked in f32 and f64 and timed in f32
+    new = sorted({sh for by in shapes.values() for sh in by} - set(SHAPES))
+    rng = np.random.default_rng(13)
+    for shape in new:
+        for dtype in (torch.float32, torch.float64):
+            res_k = chol_shape_check(torch, ck, rng, dtype, shape,
+                                     KERNELS[:2], tag="kernels_inc")
+            if res_k:
+                times[_shape(*shape)] = res_k
+    return launches, recompiles, inc_s
+
+
+def trace_inc_phase(torch, g2o, path, recompiles, inc_s):
+    """``[trace_cli_inc]``: the ``-inc`` update path over a window of
+    manhattan3500, driven through :class:`IncrementalOptimizer` as the CLI
+    drives it (edges by their largest vertex id, an update every 10 new
+    vertices, one LM iteration on the CLI's frozen chunk2 PCG).  Times each
+    update, apart those that recompiled, and splits the CLI replay's wall
+    time by that; then ``torch.profiler`` over a few updates, each alone,
+    keeping those that did not recompile."""
+    from g2o_tpu_torch.core.incremental import IncrementalOptimizer
+    from g2o_tpu_torch.io import g2o_format
+
+    g = g2o_format.load(path)
+    inc = IncrementalOptimizer(
+        solver_factory=lambda: g2o.PCGSolver(
+            max_iter=100, tol=1e-8, precond="chunk2", chunk_size=16,
+            precond_mode="frozen"),
+        dtype=torch.float32, device="cuda")
+    vrecs = g.vertices()
+    edges = iter(sorted(g.edges(), key=lambda e: max(e.vids)))
+    added = set()
+
+    def add_until(n_vertices):
+        """Add edges (and their new vertices) until ``n_vertices`` are in."""
+        for e in edges:
+            for vid in e.vids:
+                if vid not in added:
+                    r = vrecs[vid]
+                    inc.add_vertex(vid, r.vtype, r.estimate, fixed=r.fixed)
+                    added.add(vid)
+            inc.add_edge(e.etype, e.vids, e.measurement, e.information,
+                         kernel=e.kernel, delta=e.delta, param_id=e.param_id,
+                         level=e.level, active=e.active)
+            if len(added) >= n_vertices:
+                return
+
+    def update():
+        add_until(len(added) + 10)
+        inc.optimize(1)
+
+    add_until(INC_WINDOW_START)
+    inc.optimize(10)
+    plain, recompiling = [], []
+    for _ in range(INC_WINDOW_TIMED):
+        r0 = inc.recompiles
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        (recompiling if inc.recompiles > r0 else plain).append(
+            (time.perf_counter() - t0) * 1e3)
+    by_kernel, launches, traced, skipped = {}, 0, 0, 0
+    while traced < INC_WINDOW_TRACED and skipped <= INC_WINDOW_TRACED:
+        r0 = inc.recompiles
+        _, kern, n = _profile(update)
+        torch.cuda.synchronize()
+        if inc.recompiles > r0:
+            skipped += 1
+            continue
+        traced += 1
+        launches += n
+        for us, key, count in kern:
+            tot = by_kernel.setdefault(key, [0.0, 0])
+            tot[0] += us
+            tot[1] += count
+    kern = sorted(((us, key, c) for key, (us, c) in by_kernel.items()),
+                  reverse=True)
+    plain_ms = float(np.median(plain))
+    extra_ms = float(np.mean(recompiling)) - plain_ms if recompiling else None
+    dev_ms = sum(k[0] for k in kern) / 1e3 / max(traced, 1)
+    phase("trace_cli_inc", window_vertices=f"{INC_WINDOW_START}-{len(added)}",
+          timed_updates=INC_WINDOW_TIMED, recompiles_in_window=len(
+              recompiling),
+          ms_per_update=f"{plain_ms:.3f}",
+          ms_per_recompiling_update=(f"{np.mean(recompiling):.3f}"
+                                     if recompiling else None),
+          recompile_ms=f"{extra_ms:.3f}" if recompiling else None,
+          cli_recompile_share=(f"{recompiles * extra_ms / 1e3 / inc_s:.4f}"
+                               if recompiling else None),
+          traced_updates=traced,
+          recompiling_updates_not_traced=skipped,
+          device_ms_per_update=f"{dev_ms:.3f}",
+          device_busy_share=f"{dev_ms / plain_ms:.4f}",
+          kernel_launches_per_update=f"{launches / max(traced, 1):.1f}",
+          device_ops_per_update=(
+              f"{sum(k[2] for k in kern) / max(traced, 1):.1f}"),
+          top=_top(kern))
+    if not kern:
+        raise RuntimeError("the trace_cli_inc trace shows no device time")
+    if not math.isfinite(float(inc.chi2())):
+        raise RuntimeError("trace_cli_inc: non-finite chi2")
+
+
+def guess_linear_phase(torch, g2o, cli, wrappers, path):
+    """``[guess_linear_manhattan]``: -guessLinear then GN on the host
+    Cholesky, f64, to the reference's gn_var fixed point; and the linear
+    initialization on the card against the CPU."""
+    from g2o_tpu_torch.core.slam2d_linear import solve_slam2d_linear
+    from g2o_tpu_torch.io import g2o_format
+
+    for w in wrappers.values():
+        w.launches = 0
+    _, err, wall = _cli(cli, ["-guessLinear", "-solver", "gn_host_chol",
+                              "-fp64", "-i", "8", path])
+    launches = _launches(wrappers)
+    chi, _ = _final_chi2(err)
+    poses, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        g = g2o_format.load(path)
+        t0 = time.perf_counter()
+        solve_slam2d_linear(g, dtype=torch.float64, device=dev)
+        secs[dev] = time.perf_counter() - t0
+        poses[dev] = np.stack([g.vertex(v).estimate
+                               for v in sorted(g.vertices())])
+    rel = float(np.abs(poses["cuda"] - poses["cpu"]).max()
+                / np.abs(poses["cpu"]).max())
+    bound = MANHATTAN_GN + 0.25
+    phase("guess_linear_manhattan", chi2_final=f"{chi:.6f}",
+          bound=f"{bound:.6f}", cli_wall_s=f"{wall:.3f}",
+          linear_card_s=f"{secs['cuda']:.3f}",
+          linear_cpu_s=f"{secs['cpu']:.3f}",
+          linear_card_vs_cpu_rel=f"{rel:.3e}", limit="1e-8")
+    if not chi <= bound:
+        raise RuntimeError(f"guess_linear: chi2 {chi} above {bound}")
+    if not rel <= 1e-8:
+        raise RuntimeError(f"guess_linear: card poses {rel} from the CPU's")
+    return launches
+
+
+def structure_only_phase(torch, wrappers):
+    """``[structure_only_ladybug]``: every ladybug point's own LM at once,
+    f64, on the card against the CPU.  Each landmark's chi2 is held to the
+    CPU's within 1e-10, the points within ``STRUCTURE_POINTS_LIMIT``."""
+    import io as _io
+
+    from g2o_tpu_torch.core.structure_only import structure_only_refine
+    from g2o_tpu_torch.io import bal
+
+    with gzip.open(os.path.join(BAL, LADYBUG), "rt") as fh:
+        text = fh.read()
+    t = "VERTEX_TRACKXYZ"
+
+    def run(dev):
+        p = bal.load_bal_problem(_io.StringIO(text), huber=0.0,
+                                 fix_first_camera=False,
+                                 dtype=torch.float64, device=dev)
+        rng = np.random.default_rng(STRUCTURE_SEED)
+        x = p.estimates[t].cpu().numpy() + STRUCTURE_SIGMA * \
+            rng.standard_normal(tuple(p.estimates[t].shape))
+        est = dict(p.estimates)
+        est[t] = torch.as_tensor(x, dtype=torch.float64, device=dev)
+        p.set_estimates(est)
+        if dev == "cuda":
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (before, after), = structure_only_refine(
+            p, n_iters=STRUCTURE_ITERS).values()
+        secs = time.perf_counter() - t0
+        return before, after, p.estimates[t].cpu().numpy(), secs
+
+    before, after, pts, ms_card = run("cuda")
+    launches = _launches(wrappers)
+    _, after_cpu, pts_cpu, ms_cpu = run("cpu")
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    rel_pts, rel_chi = rel(pts, pts_cpu), rel(after, after_cpu)
+    cut = before.sum() / after.sum()
+    phase("structure_only_ladybug", points=len(after),
+          iterations=STRUCTURE_ITERS, chi2_before=f"{before.sum():.4f}",
+          chi2_after=f"{after.sum():.4f}", cut=f"{cut:.2f}",
+          landmarks_up=int((after > before).sum()),
+          chi2_card_vs_cpu_rel=f"{rel_chi:.3e}", chi2_limit="1e-10",
+          points_card_vs_cpu_rel=f"{rel_pts:.3e}",
+          points_limit=STRUCTURE_POINTS_LIMIT,
+          ms=f"{ms_card * 1e3:.3f}", cpu_ms=f"{ms_cpu * 1e3:.3f}")
+    if (after > before).any() or not cut >= 10:
+        raise RuntimeError(f"structure_only: chi2 {before.sum()} -> "
+                           f"{after.sum()}, {(after > before).sum()} up")
+    if not rel_chi <= 1e-10:
+        raise RuntimeError(f"structure_only: card chi2 {rel_chi} from the "
+                           f"CPU's")
+    if not rel_pts <= STRUCTURE_POINTS_LIMIT:
+        raise RuntimeError(f"structure_only: card points {rel_pts} from the "
+                           f"CPU's")
+    return launches
+
+
+def write_debug_phase(torch, g2o, tmp):
+    """``[write_debug]``: an exactly-converged pose graph on the card (chi2
+    0), so every LM trial is rejected and the failed step is dumped."""
+    from g2o_tpu_torch.types.slam2d import EdgeSE2, VertexSE2
+
+    g = g2o.Graph()
+    g.add_vertex(0, VertexSE2, np.zeros(3), fixed=True)
+    g.add_vertex(1, VertexSE2, [1.0, 0.0, 0.0])
+    g.add_vertex(2, VertexSE2, [2.0, 1.0, 0.0])
+    g.add_edge(EdgeSE2, [0, 1], [1.0, 0.0, 0.0], np.eye(3))
+    g.add_edge(EdgeSE2, [1, 2], [1.0, 1.0, 0.0], np.eye(3))
+    p = g.compile(dtype=torch.float32, device="cuda")
+    opt = g2o.SparseOptimizer(
+        p, algorithm=g2o.LevenbergMarquardt(max_trials_after_failure=2),
+        solver=g2o.DenseSolver())
+    opt.write_debug = os.path.join(tmp, "debug")
+    import contextlib
+    import io as _io
+
+    with contextlib.redirect_stderr(_io.StringIO()):
+        done = opt.optimize(3)
+    files = sorted(os.listdir(opt.write_debug))
+    keys = set(np.load(os.path.join(opt.write_debug, files[0])).files) \
+        if files else set()
+    phase("write_debug", iterations_done=done, files=",".join(files),
+          keys=",".join(sorted(keys)), jax_keys=keys == DEBUG_KEYS)
+    if done != 0 or files != ["g2o_tpu_debug_it0.npz"] or keys != DEBUG_KEYS:
+        raise RuntimeError(f"write_debug: {done} iterations, {files}, "
+                           f"{sorted(keys)}")
+
+
+def cli_phase(torch, g2o, ck, wrappers, times):
+    """Phase 13; returns the launch counts of each of its paths."""
+    from g2o_tpu_torch.apps import cli
+    from g2o_tpu_torch.io import g2o_format
+    from g2o_tpu_torch.sim.generators import create_manhattan
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path = {"cli_sphere": cli_sphere_phase(torch, g2o, cli, wrappers,
+                                                  tmp)}
+        path = os.path.join(tmp, "manhattan3500.g2o")
+        g2o_format.save(create_manhattan(n_poses=3500, seed=0), path)
+        by_path["cli_inc_manhattan"], recompiles, inc_s = cli_inc_phase(
+            torch, g2o, cli, ck, wrappers, times, path)
+        trace_inc_phase(torch, g2o, path, recompiles, inc_s)
+        by_path["guess_linear_manhattan"] = guess_linear_phase(
+            torch, g2o, cli, wrappers, path)
+        by_path["structure_only_ladybug"] = structure_only_phase(torch,
+                                                                 wrappers)
+        write_debug_phase(torch, g2o, tmp)
+    phase("done_cli", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return by_path
+
+
 def main():
     import torch
 
@@ -2526,6 +3005,7 @@ def main():
     by_path.update(sba_path_phase(torch, g2o, wrappers, sba))
     by_path.update(api_phase(torch, g2o, wrappers, implicit, sba))
     by_path.update(sim_phase(torch, g2o, ck, wrappers, times))
+    by_path.update(cli_phase(torch, g2o, ck, wrappers, times))
     # a new kernel's launches are its wrappers' launches
     for counts in by_path.values():
         for k, ws in NEW_KERNELS.items():

@@ -245,15 +245,20 @@ class Graph:
     def compile(self, *, dtype=None, device="cuda", level: int = 0,
                 pad_edges_to_multiple: int = 1,
                 bucket_landmarks: bool = False,
+                static_kernels: bool = True,
                 assembly_precision: str = "highest"):
         """Freeze the edges of ``level`` into a :class:`Problem` of
         ``dtype`` tensors on ``device`` (float64 when ``dtype`` is None);
         without a CUDA card the caller must pass ``device="cpu"``.
         ``bucket_landmarks=True`` gives the landmark-bucketed layout of the
-        implicit Schur solver."""
+        implicit Schur solver.  ``static_kernels=False`` keeps the robust
+        kernel dispatch per row (no batch-uniform kernel id is frozen), as
+        needed when kernel ids are written after compile — the
+        capacity-padded incremental mode."""
         from g2o_tpu_torch.core.problem import compile_graph
 
         return compile_graph(self, dtype=dtype, device=device, level=level,
                              pad_edges_to_multiple=pad_edges_to_multiple,
                              bucket_landmarks=bucket_landmarks,
+                             static_kernels=static_kernels,
                              assembly_precision=assembly_precision)

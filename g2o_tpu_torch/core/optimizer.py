@@ -96,6 +96,12 @@ class GaussNewton(OptimizationAlgorithm):
         chi2_new = float(p.chi2_fn(p.data, new_est)[0])
         stats.time_update = time.perf_counter() - t0
         if not math.isfinite(chi2_new):
+            if optimizer.write_debug:
+                from g2o_tpu_torch.utils.debug_dump import dump_failed_system
+                dump_failed_system(p, lin, 0.0, iteration,
+                                   optimizer.write_debug,
+                                   reason="non-finite chi2 after GN step",
+                                   chi2=stats.chi2)
             return False
         p.set_estimates(new_est)
         optimizer.current_chi2 = chi2_new
@@ -130,6 +136,7 @@ class LevenbergMarquardt(OptimizationAlgorithm):
             else:
                 self._lambda = float(self.tau * _max_abs_diag(p, lin))
 
+        rho = 0.0
         trials = 0
         good = False
         t_solve = 0.0
@@ -157,6 +164,12 @@ class LevenbergMarquardt(OptimizationAlgorithm):
         stats.levenberg_iterations = trials + (1 if good else 0)
         stats.lambda_value = self._lambda
         self._levenberg_iters = stats.levenberg_iterations
+        if not good and optimizer.write_debug:
+            from g2o_tpu_torch.utils.debug_dump import dump_failed_system
+            dump_failed_system(
+                p, lin, self._lambda, iteration, optimizer.write_debug,
+                reason=f"LM exhausted {trials} trials (last rho={rho:.3g})",
+                chi2=current_chi2)
         return good
 
     def print_verbose_suffix(self):
@@ -249,6 +262,9 @@ class SparseOptimizer:
         self.batch_statistics: list[BatchStatistics] = []
         self.force_stop = False
         self.terminate_gain_threshold: Optional[float] = None
+        # failure diagnostics: directory to dump the linearized system to on
+        # a failed step (reference ``writeDebug``, ``g2o/core/solver.h:128``)
+        self.write_debug: Optional[str] = None
         # pre/post iteration hooks — analogue of HyperGraphAction
         # (``g2o/core/hyper_graph_action.h:49``); called as fn(optimizer, it)
         self.pre_iteration_actions: list = []

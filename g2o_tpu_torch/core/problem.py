@@ -559,13 +559,16 @@ def _device(device):
 
 def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
                   pad_edges_to_multiple=1, assembly_precision="highest",
-                  registry=None, bucket_specs=None, segps=None):
+                  registry=None, bucket_specs=None, segps=None,
+                  static_kernels=True):
     """Shared tail of :func:`build_problem` and :func:`problem_from_numpy`:
     ``vertex_arrays`` is ``{type name: (estimates (N, rep), fixed (N,),
     marginalized (N,))}`` in internal vertex order, ``edge_arrays`` is
     ``{edge name: {field: array}}`` with LOCAL vertex indices in ``vidx``.
     ``bucket_specs``/``segps`` (edge name -> spec / bucket-order landmark
-    ids) mark the batches already laid out in bucketed slabs."""
+    ids) mark the batches already laid out in bucketed slabs.
+    ``static_kernels=False`` freezes no uniform robust-kernel id: every
+    batch dispatches on its per-row kernel ids."""
     bucket_specs = bucket_specs or {}
     registry = registry or REGISTRY
     dtype = torch.float64 if dtype is None else dtype
@@ -607,7 +610,7 @@ def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
             raise ValueError(f"{name}: parameter values have shape "
                              f"{a['param'].shape}, expected (E, "
                              f"{et.param_dim})")
-        if E:
+        if E and static_kernels:
             uks = np.unique(a["kernel"])
             uniform_kernel[name] = int(uks[0]) if len(uks) == 1 else None
         # pad by replicating row 0 as inactive rows (W == 0 kills them)
@@ -740,6 +743,7 @@ def _bucket_rows(edge_arrays, vertex_arrays, registry):
 def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
                   pad_edges_to_multiple: int = 1,
                   bucket_landmarks: bool = False,
+                  static_kernels: bool = True,
                   assembly_precision: str = "highest",
                   registry=None) -> Problem:
     """Build a :class:`Problem` from raw numpy blocks keyed by type name:
@@ -799,7 +803,8 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
                          dtype=dtype, device=device,
                          pad_edges_to_multiple=pad_edges_to_multiple,
                          assembly_precision=assembly_precision,
-                         registry=registry, bucket_specs=specs, segps=segps)
+                         registry=registry, bucket_specs=specs, segps=segps,
+                         static_kernels=static_kernels)
 
 
 def problem_from_numpy(vertices, edges, *, dtype=None, device="cuda",
@@ -820,6 +825,7 @@ def problem_from_numpy(vertices, edges, *, dtype=None, device="cuda",
 def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
                   pad_edges_to_multiple: int = 1,
                   bucket_landmarks: bool = False,
+                  static_kernels: bool = True,
                   assembly_precision: str = "highest") -> Problem:
     """Freeze a host :class:`~g2o_tpu_torch.core.graph.Graph` — the analogue
     of ``initializeOptimization`` + ``buildIndexMapping``
@@ -860,5 +866,6 @@ def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
                          device=device,
                          pad_edges_to_multiple=pad_edges_to_multiple,
                          bucket_landmarks=bucket_landmarks,
+                         static_kernels=static_kernels,
                          assembly_precision=assembly_precision,
                          registry=graph.registry)

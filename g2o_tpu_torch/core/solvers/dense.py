@@ -25,7 +25,9 @@ class DenseSolver:
     def __init__(self):
         self.aux = ()  # no solver-owned arrays
 
-    def setup(self, problem):
+    def setup(self, problem, force: bool = False):
+        """Bind the solve to ``problem``; it reads the problem's tensors
+        at every solve, so ``force`` changes nothing."""
         def solve(data, lin, lam, aux=()):
             H = problem.dense_hessian_fn(data, lin)
             # LM damping: H + lambda I on the diagonal (reference

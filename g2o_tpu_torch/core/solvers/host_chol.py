@@ -46,7 +46,10 @@ class HostCholSolver:
         self._base_cache = (None, None)   # (lin, (Ax, bh)) at λ = 0
         self._p = None
 
-    def setup(self, problem):
+    def setup(self, problem, force: bool = False):
+        """Symbolic analysis and the scatter maps of ``problem``, redone
+        on every call (``force`` is accepted for the solvers' common
+        signature)."""
         p = problem
         self._p = p
         tnames = list(p.vertex_types)

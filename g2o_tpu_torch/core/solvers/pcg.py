@@ -130,6 +130,21 @@ class PCGSolver:
         self._frozen_minv = self.build_precond(p.data, lin, lam)
         return self
 
+    def refresh_chunk_maps(self, problem):
+        """Recompute the chunk and chunk2 index maps and the per-chunk
+        cover after in-place edge and fixed-flag writes (incremental adds),
+        keeping the rest of the solver — its carried residual floor, its
+        ``every_k`` count and frozen preconditioner — as it is.  Falls back
+        to ``setup(force=True)`` when the vertex count changed."""
+        cfg = self._chunk
+        if cfg is None:
+            return self
+        if sum(problem.counts.values()) != cfg["n"]:
+            return self.setup(problem, force=True)
+        self.problem = problem
+        self._chunk = self._chunk_setup(problem)
+        return self
+
     def _chunk_setup(self, p):
         """Index maps of the chunked preconditioners.  Vertices get GLOBAL
         block ids (type base + local index), every block is padded to the

@@ -13,7 +13,8 @@ each wrapper is its plain PyTorch version:
   it);
 * on a CUDA tensor it launches the kernel, or raises — it never falls back.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.  K1 and
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, and by
+launch shape ``(S, n, m)`` (``m = n`` for K1) in ``<wrapper>.shapes``.  K1 and
 K2 take an int32 scratch of tile flags that the wrapper allocates, of the
 length the library gives (``g2o_chol_scratch_len``,
 ``g2o_solve_lower_scratch_len``).
@@ -184,10 +185,12 @@ def chol_batched(D):
     if err:
         raise RuntimeError(f"chol_batched kernel failed: CUDA error {err}")
     chol_batched.launches += 1
+    chol_batched.shapes[(S, n, n)] = chol_batched.shapes.get((S, n, n), 0) + 1
     return out
 
 
 chol_batched.launches = 0
+chol_batched.shapes = {}
 
 
 # --------------------------------------------------------------------------- #
@@ -196,8 +199,8 @@ chol_batched.launches = 0
 
 def _launch_solve(wrapper, L, B):
     """Launch ``g2o_<wrapper name>_f32/_f64`` on CUDA tensors ``L (S, n, n)``
-    and ``B (S, n, m)``, count it in ``wrapper.launches`` and return the
-    solution."""
+    and ``B (S, n, m)``, count it in ``wrapper.launches`` and
+    ``wrapper.shapes`` and return the solution."""
     name = wrapper.__name__
     if L.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {L.device}")
@@ -224,6 +227,7 @@ def _launch_solve(wrapper, L, B):
     if err:
         raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
     wrapper.launches += 1
+    wrapper.shapes[(S, n, m)] = wrapper.shapes.get((S, n, m), 0) + 1
     return out
 
 
@@ -241,6 +245,7 @@ def solve_lower_batched(L, B):
 
 
 solve_lower_batched.launches = 0
+solve_lower_batched.shapes = {}
 
 
 def solve_upper_batched_plain(L, B):
@@ -257,3 +262,4 @@ def solve_upper_batched(L, B):
 
 
 solve_upper_batched.launches = 0
+solve_upper_batched.shapes = {}

@@ -5,7 +5,9 @@ Cholesky, explicit and implicit Schur (BAL; and the sba problems of
 ``chip_smoke.py`` on the general path and the bucketed multi-observer
 branch), CGLS, Dogleg and sparse Cholesky paths on the card against the
 same paths on the CPU; the edge types of the remaining type libraries and
-the 2D/3D simulators' scenes on the card against the CPU.
+the 2D/3D simulators' scenes, the linear 2D initialization, the
+structure-only refinement, incremental mode and the CLI on the card against
+the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
 This file imports neither JAX nor ``g2o_tpu``, so it also runs on a machine
@@ -62,6 +64,11 @@ def test_kernel_matches_plain_on_card(S, n, m, dtype, tol):
     before = (chol_kernels.chol_batched.launches,
               chol_kernels.solve_lower_batched.launches,
               chol_kernels.solve_upper_batched.launches)
+    # each launch is also counted by its (S, n, m)
+    by_shape = ((chol_kernels.chol_batched, (S, n, n)),
+                (chol_kernels.solve_lower_batched, (S, n, m)),
+                (chol_kernels.solve_upper_batched, (S, n, m)))
+    shapes_before = [w.shapes.get(sh, 0) for w, sh in by_shape]
     L = chol_kernels.chol_batched(D)
     Lp = chol_kernels.chol_batched_plain(D).contiguous()
     Y = chol_kernels.solve_lower_batched(Lp, B)
@@ -73,6 +80,8 @@ def test_kernel_matches_plain_on_card(S, n, m, dtype, tol):
             chol_kernels.solve_lower_batched.launches,
             chol_kernels.solve_upper_batched.launches) == (
                 before[0] + 1, before[1] + 1, before[2] + 1)
+    assert [w.shapes.get(sh, 0) for w, sh in by_shape] == [
+        c + 1 for c in shapes_before]
     assert (L - Lp).abs().max() <= tol * Lp.abs().max()
     assert (Y - Yp).abs().max() <= tol * Yp.abs().max()
     assert (X - Xp).abs().max() <= tol * Xp.abs().max()
@@ -1052,3 +1061,131 @@ def test_simulated_scene_lm_on_card_matches_cpu(dim):
     np.testing.assert_allclose(c1[:n], c0[:n], rtol=1e-9)
     np.testing.assert_allclose(runs[1]["chi2_final"], runs[0]["chi2_final"],
                                rtol=1e-9)
+
+
+# --------------------------------------------------------------------------- #
+# the g2o command-line tool and its modules
+# --------------------------------------------------------------------------- #
+
+def _guess_graph():
+    g = create_manhattan(n_poses=200, seed=12)
+    for rec in g.vertices().values():
+        if not rec.fixed:
+            rec.estimate = np.zeros(3)
+    return g
+
+
+@pytest.mark.cuda
+def test_slam2d_linear_on_card_matches_cpu():
+    _need_card()
+    from g2o_tpu_torch.core.slam2d_linear import solve_slam2d_linear
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = _guess_graph()
+        assert solve_slam2d_linear(g, device=dev) == 200
+        out[dev] = np.stack([g.vertex(v).estimate
+                             for v in sorted(g.vertices())])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-8,
+                               atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_structure_only_on_card_matches_cpu():
+    _need_card()
+    from g2o_tpu_torch.core.structure_only import structure_only_refine
+    from g2o_tpu_torch.sim.generators import create_ba_scene
+
+    res, pts = {}, {}
+    for dev in ("cuda", "cpu"):
+        g, _ = create_ba_scene(n_cameras=10, n_points=120, pixel_noise=1.0,
+                               point_noise=0.2, seed=4)
+        p = g.compile(device=dev)
+        res[dev] = structure_only_refine(p, n_iters=10)
+        pts[dev] = {t: e.cpu().numpy() for t, e in p.estimates.items()}
+    for t in res["cpu"]:
+        for a, b in zip(res["cuda"][t], res["cpu"][t]):
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+    (before, after), = res["cuda"].values()
+    assert np.all(after <= before + 1e-12)
+    for t in pts["cpu"]:
+        # the CPU parity tests' point tolerance (flat depth directions)
+        np.testing.assert_allclose(pts["cuda"][t], pts["cpu"][t],
+                                   rtol=1e-7, atol=1e-12)
+
+
+def _replay(inc, g, update=10, final=10):
+    vrecs, added, n_since = g.vertices(), set(), 0
+    chis = []
+    for e in sorted(g.edges(), key=lambda e: max(e.vids)):
+        for vid in e.vids:
+            if vid not in added:
+                r = vrecs[vid]
+                inc.add_vertex(vid, r.vtype, r.estimate, fixed=r.fixed)
+                added.add(vid)
+                n_since += 1
+        inc.add_edge(e.etype, e.vids, e.measurement, e.information)
+        if n_since >= update:
+            inc.optimize(1)
+            chis.append(inc.chi2())
+            n_since = 0
+    inc.optimize(final)
+    chis.append(inc.chi2())
+    return chis
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["supernodal", "chunk2_frozen"])
+def test_incremental_on_card_matches_cpu(solver):
+    """200 poses replayed as ``g2o -inc`` does: the chi2 after every update
+    on the card equals the CPU run's, and supernodal reaches the batch
+    optimum (ROADMAP C.5)."""
+    _need_card()
+    from g2o_tpu_torch.core.incremental import IncrementalOptimizer
+
+    make = {"supernodal": g2o_tpu_torch.SupernodalCholeskySolver,
+            "chunk2_frozen": lambda: g2o_tpu_torch.PCGSolver(
+                max_iter=150, tol=1e-8, precond="chunk2", chunk_size=16,
+                precond_mode="frozen")}[solver]
+    chis, recompiles = {}, {}
+    for dev in ("cuda", "cpu"):
+        inc = IncrementalOptimizer(solver_factory=make, device=dev,
+                                   vertex_chunk=64, edge_chunk=64)
+        chis[dev] = _replay(inc, create_manhattan(n_poses=200, seed=0))
+        recompiles[dev] = inc.recompiles
+    assert recompiles["cuda"] == recompiles["cpu"] > 1
+    np.testing.assert_allclose(chis["cuda"], chis["cpu"], rtol=1e-6,
+                               atol=1e-9)
+    p = create_manhattan(n_poses=200, seed=0).compile(device="cuda")
+    opt = g2o_tpu_torch.SparseOptimizer(
+        p, solver=g2o_tpu_torch.SupernodalCholeskySolver())
+    opt.optimize(20)
+    if solver == "supernodal":
+        assert chis["cuda"][-1] == pytest.approx(opt.chi2(), rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_cli_on_card_matches_cpu(tmp_path):
+    """The CLI on the card (its default device) against -device cpu."""
+    _need_card()
+    import contextlib
+    import json
+
+    from g2o_tpu_torch.apps import cli
+    from g2o_tpu_torch.io import g2o_format
+
+    inp = str(tmp_path / "m.g2o")
+    g2o_format.save(create_manhattan(n_poses=150, seed=3), inp)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        summary = str(tmp_path / f"{dev}.jsonl")
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["-fp64", "-device", dev, "-i", "10", "-solver",
+                           "lm_supernodal", "-robustKernel", "Huber",
+                           "-summary", summary, "-o",
+                           str(tmp_path / f"{dev}.g2o"), inp])
+        assert rc == 0
+        out[dev] = json.loads(open(summary).read().splitlines()[-1])
+    assert out["cuda"]["iterations"] == out["cpu"]["iterations"]
+    assert out["cuda"]["final_chi2"] == pytest.approx(
+        out["cpu"]["final_chi2"], rel=1e-9)

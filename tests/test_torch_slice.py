@@ -211,7 +211,14 @@ def test_port_imports_neither_jax_nor_g2o_tpu():
             "g2o_tpu_torch.types.slam3d_addons, "
             "g2o_tpu_torch.types.slam2d_addons, g2o_tpu_torch.types.sim3, "
             "g2o_tpu_torch.types.sclam2d, g2o_tpu_torch.types.icp, "
-            "g2o_tpu_torch.types.data, g2o_tpu_torch.types, chip_smoke")
+            "g2o_tpu_torch.types.data, g2o_tpu_torch.types, "
+            "g2o_tpu_torch.core.initial_guess, "
+            "g2o_tpu_torch.core.slam2d_linear, "
+            "g2o_tpu_torch.core.structure_only, "
+            "g2o_tpu_torch.core.incremental, g2o_tpu_torch.utils, "
+            "g2o_tpu_torch.utils.metrics, g2o_tpu_torch.utils.debug_dump, "
+            "g2o_tpu_torch.io.export, g2o_tpu_torch.io.viz, "
+            "g2o_tpu_torch.apps.cli, chip_smoke")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
