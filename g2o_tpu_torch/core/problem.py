@@ -822,6 +822,13 @@ def problem_from_numpy(vertices, edges, *, dtype=None, device="cuda",
                          dtype=dtype, device=device, registry=registry)
 
 
+class _GraphTypes(NamedTuple):
+    """The type tables :func:`build_problem` reads from a registry."""
+
+    vertex_types: dict
+    edge_types: dict
+
+
 def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
                   pad_edges_to_multiple: int = 1,
                   bucket_landmarks: bool = False,
@@ -862,10 +869,19 @@ def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
             np.array([e.active for e in recs], dtype=bool),
             par,
         )
+    # the records' own types, over the registry's: a user-defined type
+    # (``examples/circle_fit``) compiles without being registered, as in
+    # the JAX package, whose blocks are keyed by the type objects
+    types = _GraphTypes(dict(graph.registry.vertex_types),
+                        dict(graph.registry.edge_types))
+    for rec in graph.vertices().values():
+        types.vertex_types[rec.vtype.name] = rec.vtype
+    for e in graph.edges():
+        types.edge_types[e.etype.name] = e.etype
     return build_problem(vertex_blocks, edge_blocks, dtype=dtype,
                          device=device,
                          pad_edges_to_multiple=pad_edges_to_multiple,
                          bucket_landmarks=bucket_landmarks,
                          static_kernels=static_kernels,
                          assembly_precision=assembly_precision,
-                         registry=graph.registry)
+                         registry=types)

@@ -45,6 +45,8 @@ _PANEL = 96
 
 
 class PCGSolver:
+    name = "pcg"
+
     def __init__(self, max_iter: int = 100, tol: float = 1e-6,
                  abs_tol: float = 0.0, precond: str = "jacobi",
                  chunk_size: int = 32, onehot_max_segments: int = 0,

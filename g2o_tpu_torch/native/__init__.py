@@ -1,5 +1,5 @@
-"""Host-side native code: the symbolic block-Cholesky analysis and the
-host sparse Cholesky.
+"""Host-side native code: the symbolic block-Cholesky analysis, the
+host sparse Cholesky and the ``.g2o`` tokenizer.
 
 * ``symbolic_analysis`` runs ``symchol.cpp`` (fill-reducing
   nested-dissection ordering, elimination tree, exact column structure
@@ -10,13 +10,18 @@ host sparse Cholesky.
   sparse Cholesky of the hybrid direct solver's numeric phase
   (``core/solvers/host_chol.py``).  It has no fallback: without its
   library it raises.
+* ``parse_blocks`` runs ``fastparse.cpp``, the one-pass ``.g2o`` tokenizer
+  of the array-direct loader (``io/g2o_fast.py``).  It returns ``None``
+  without a compiler, and the loader then reads the file with the object
+  loader.
 
 Each source is compiled on its own with ``g++`` at first use into
-``g2o_tpu_torch/_build/``.  Both are byte-identical copies of the JAX
-package's ``g2o_tpu/native/symchol.cpp`` and ``hostchol.cpp`` (CPU tests
-hold them equal): the same source keeps the ordering, and with it every
-supernodal schedule and host factor, identical to the JAX package's.  This
-is host code, not a device kernel.
+``g2o_tpu_torch/_build/``.  All three are byte-identical copies of the JAX
+package's ``g2o_tpu/native/symchol.cpp``, ``hostchol.cpp`` and
+``fastparse.cpp`` (CPU tests hold them equal): the same source keeps the
+ordering, and with it every supernodal schedule and host factor, and the
+parsed numbers identical to the JAX package's.  This is host code, not a
+device kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import numpy as np
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "native", "symchol.cpp")
 HOSTCHOL_SOURCE = os.path.join(_PKG, "native", "hostchol.cpp")
+FASTPARSE_SOURCE = os.path.join(_PKG, "native", "fastparse.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
@@ -190,3 +196,63 @@ class HostCholesky:
         if h:
             self._lib.g2o_hostchol_release(h)
             self._h = None
+
+
+@functools.cache
+def get_fastparse_lib():
+    """The ``.g2o`` tokenizer library, or ``None`` when it cannot be
+    built."""
+    path = _build_lib(FASTPARSE_SOURCE)
+    if path is None:
+        return None
+    lib = ctypes.CDLL(path)
+    lib.g2o_parse_file.restype = ctypes.c_void_p
+    lib.g2o_parse_file.argtypes = [ctypes.c_char_p]
+    lib.g2o_parse_buffer.restype = ctypes.c_void_p
+    lib.g2o_parse_buffer.argtypes = [ctypes.c_char_p, ctypes.c_long]
+    lib.g2o_num_blocks.restype = ctypes.c_int
+    lib.g2o_num_blocks.argtypes = [ctypes.c_void_p]
+    lib.g2o_block_tag.restype = ctypes.c_char_p
+    lib.g2o_block_tag.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.g2o_block_rows.restype = ctypes.c_long
+    lib.g2o_block_rows.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.g2o_block_cols.restype = ctypes.c_int
+    lib.g2o_block_cols.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.g2o_block_copy.restype = None
+    lib.g2o_block_copy.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_double),
+                                   ctypes.POINTER(ctypes.c_int)]
+    lib.g2o_free.restype = None
+    lib.g2o_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def parse_blocks(path_or_text, *, is_text: bool = False):
+    """Parse a ``.g2o``-style file (or, with ``is_text``, a string) into
+    ``{tag: (values (R, C) float64 NaN-padded, ncols (R,) int32)}``: one
+    block per leading tag, a row per line, ``ncols`` the numbers on it.
+    Returns ``None`` when the native library is unavailable."""
+    lib = get_fastparse_lib()
+    if lib is None:
+        return None
+    if is_text:
+        data = path_or_text.encode()
+        h = lib.g2o_parse_buffer(data, len(data))
+    else:
+        h = lib.g2o_parse_file(os.fsencode(path_or_text))
+    if not h:
+        raise IOError(f"fastparse: cannot read {path_or_text!r}")
+    try:
+        out = {}
+        for i in range(lib.g2o_num_blocks(h)):
+            tag = lib.g2o_block_tag(h, i).decode()
+            vals = np.empty((lib.g2o_block_rows(h, i),
+                             lib.g2o_block_cols(h, i)), dtype=np.float64)
+            ncols = np.empty((vals.shape[0],), dtype=np.int32)
+            lib.g2o_block_copy(
+                h, i, vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                ncols.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+            out[tag] = (vals, ncols)
+        return out
+    finally:
+        lib.g2o_free(h)

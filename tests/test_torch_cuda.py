@@ -6,8 +6,9 @@ Cholesky, explicit and implicit Schur (BAL; and the sba problems of
 branch), CGLS, Dogleg and sparse Cholesky paths on the card against the
 same paths on the CPU; the edge types of the remaining type libraries and
 the 2D/3D simulators' scenes, the linear 2D initialization, the
-structure-only refinement, incremental mode and the CLI on the card against
-the CPU.
+structure-only refinement, incremental mode, the CLI, the fast loader, the
+hierarchical and interactive apps, the FLOP model's share of the card's
+peak and every example on the card against the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
 This file imports neither JAX nor ``g2o_tpu``, so it also runs on a machine
@@ -1189,3 +1190,132 @@ def test_cli_on_card_matches_cpu(tmp_path):
     assert out["cuda"]["iterations"] == out["cpu"]["iterations"]
     assert out["cuda"]["final_chi2"] == pytest.approx(
         out["cpu"]["final_chi2"], rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_fast_loader_on_card_matches_cpu(tmp_path):
+    """``g2o_fast.load_problem`` builds on the card (its default device)
+    the CPU's arrays bit for bit, and 5 LM iterations from them agree to
+    rtol 1e-9 (float64)."""
+    _need_card()
+    from g2o_tpu_torch.io import g2o_fast, g2o_format
+
+    path = str(tmp_path / "m.g2o")
+    g2o_format.save(create_manhattan(n_poses=200, seed=13), path)
+    pc, _ = g2o_fast.load_problem(path, kernel="Huber", delta=2.0)
+    pp, _ = g2o_fast.load_problem(path, kernel="Huber", delta=2.0,
+                                  device="cpu")
+    assert pc.device.type == "cuda"
+    for t in pp.estimates:
+        assert torch.equal(pc.estimates[t].cpu(), pp.estimates[t])
+        assert torch.equal(pc.data.fixed[t].cpu(), pp.data.fixed[t])
+    for name, b in pp.data.edges.items():
+        for f in b._fields:
+            assert torch.equal(getattr(pc.data.edges[name], f).cpu(),
+                               getattr(b, f)), f
+    chis = [g2o_tpu_torch.optimize_fused(p, g2o_tpu_torch.PCGSolver(
+        max_iter=100, tol=1e-10), 5)["chi2_per_iteration"] for p in (pc, pp)]
+    np.testing.assert_allclose(chis[0], chis[1], rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_hierarchical_on_card_matches_cpu():
+    """``optimize_hierarchical`` on a 300-pose manhattan graph, float64:
+    the same stars and skeleton, final chi2 to rtol 1e-6."""
+    _need_card()
+    from g2o_tpu_torch.apps.hierarchical import optimize_hierarchical
+
+    res = {dev: optimize_hierarchical(
+        create_manhattan(n_poses=300, seed=17), star_radius=5,
+        star_iterations=8, skeleton_iterations=20, refine_iterations=8,
+        device=dev) for dev in ("cuda", "cpu")}
+    for k in ("n_stars", "levels", "skeleton_vertices", "skeleton_edges"):
+        assert res["cuda"][k] == res["cpu"][k]
+    assert res["cuda"]["final_chi2"] == pytest.approx(
+        res["cpu"]["final_chi2"], rel=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_interactive_on_card_matches_cpu(dim):
+    """The interactive protocol on the card (float64): the QUERY_STATE
+    estimates the CPU's within 1e-7."""
+    _need_card()
+    from g2o_tpu_torch.apps.interactive import InteractiveSlam
+
+    script = {2: ["ADD VERTEX_XYT 0;", "ADD VERTEX_XYT 1 1 0 0;",
+                  "ADD EDGE_XYT 0 0 1 .1 .2 .3 1 0 0 1 0 1;",
+                  "ADD EDGE_XYT 1 1 2 .1 .2 .3 1 0 0 1 0 1;",
+                  "ADD EDGE_XYT 2 0 2 .2 .4 .6 2 0 0 2 0 2;"],
+              3: ["ADD VERTEX_XYZRPY 0;",
+                  "ADD EDGE_XYZRPY 0 0 1 .1 .2 .3 .01 .02 .03 1 0 0 0 0 0 1 "
+                  "0 0 0 0 1 0 0 0 1 0 0 1 0 1;",
+                  "ADD EDGE_XYZRPY 1 1 2 .1 0 .2 .03 .02 .01 1 0 0 0 0 0 1 "
+                  "0 0 0 0 1 0 0 0 1 0 0 1 0 1;"]}[dim]
+    script = script + ["SOLVE_STATE;", "QUERY_STATE;"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        srv = InteractiveSlam(iterations=10, dtype=torch.float64,
+                              device=dev)
+        resp = [srv.handle_line(ln) for ln in script][-1]
+        out[dev] = np.array([[float(x) for x in row.split()[1:]]
+                             for row in resp.splitlines()[1:-1]])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_mfu_report_on_card():
+    """The FLOP model's share of the card's published peak lies in (0, 1)
+    for an f32 chunk2 run (an H100; other cards have no peak)."""
+    _need_card()
+    from g2o_tpu_torch.utils import flops
+
+    if flops.device_peak_flops() is None:
+        pytest.skip("no published peak for this card")
+    p = create_manhattan(n_poses=300, seed=0).compile(dtype=torch.float32)
+    s = g2o_tpu_torch.PCGSolver(max_iter=50, tol=1e-3, precond="chunk2",
+                                chunk_size=16)
+    rep = flops.mfu_report(p, s, g2o_tpu_torch.optimize_fused(p, s, 5))
+    assert rep["peak_dtype"] == "float32"
+    assert 0.0 < rep["mfu_vs_peak"] < 1.0
+
+
+EXAMPLE_ARGS = {"simple_optimize": ["{dir}/m.g2o", "6"],
+                "g2o_unfold": ["{dir}/m.g2o", "-i", "3", "-maxCost", "1e9",
+                               "-gnudump", "{dir}/dump.dat"],
+                "create_sphere": ["{dir}/s.g2o", "8", "4"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "ba_anchored_inverse_depth", "ba_demo", "bal_example", "circle_fit",
+    "create_sphere", "curve_fit", "data_convert", "g2o_unfold", "gicp_demo",
+    "line_slam", "odom_calibration", "plane_slam", "sba_demo",
+    "simple_optimize", "target_tracking", "tutorial_slam2d"])
+def test_example_on_card_matches_cpu(tmp_path, name):
+    """Each example with ``-device cuda`` prints what its ``-device cpu``
+    run prints (float64; ``_example_runs.assert_same_output``: rtol 1e-6
+    or one unit of the last printed digit; 1e-4 for the examples whose
+    LM solves with PCG's default tol of 1e-6, as ``chip_smoke.py``)."""
+    _need_card()
+    from _example_runs import assert_same_output, run
+    from g2o_tpu_torch.io import g2o_format
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        g2o_format.save(create_manhattan(n_poses=30, seed=4),
+                        str(d / "m.g2o"))
+        args = [a.replace("{dir}", str(d)) for a in EXAMPLE_ARGS.get(name,
+                                                                   [])]
+        ret, text = run("torch", name, args, str(d), device=dev)
+        out[dev] = (ret, text.replace(str(d), "{dir}"))
+    pcg = {"simple_optimize", "g2o_unfold", "tutorial_slam2d",
+           "target_tracking", "line_slam", "plane_slam"}
+    assert_same_output(out["cuda"][1], out["cpu"][1],
+                       rtol=1e-4 if name in pcg else 1e-6)
+    if isinstance(out["cpu"][0], np.ndarray):
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-9)
+    else:
+        assert out["cuda"][0] == out["cpu"][0]

@@ -193,6 +193,13 @@ def test_create_sphere_noise_is_seeded():
                                             for e in c.edges()]))
 
 
+EXAMPLES = ("ba_anchored_inverse_depth", "ba_demo", "bal_example",
+            "circle_fit", "create_sphere", "curve_fit", "data_convert",
+            "g2o_unfold", "gicp_demo", "line_slam", "odom_calibration",
+            "plane_slam", "sba_demo", "simple_optimize", "target_tracking",
+            "tutorial_slam2d")
+
+
 def test_port_imports_neither_jax_nor_g2o_tpu():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['g2o_tpu'] = None; import g2o_tpu_torch, "
@@ -218,7 +225,13 @@ def test_port_imports_neither_jax_nor_g2o_tpu():
             "g2o_tpu_torch.core.incremental, g2o_tpu_torch.utils, "
             "g2o_tpu_torch.utils.metrics, g2o_tpu_torch.utils.debug_dump, "
             "g2o_tpu_torch.io.export, g2o_tpu_torch.io.viz, "
-            "g2o_tpu_torch.apps.cli, chip_smoke")
+            "g2o_tpu_torch.apps.cli, g2o_tpu_torch.io.g2o_fast, "
+            "g2o_tpu_torch.utils.flops, g2o_tpu_torch.apps.anonymize, "
+            "g2o_tpu_torch.apps.convert_segment_line, "
+            "g2o_tpu_torch.apps.hierarchical, "
+            "g2o_tpu_torch.apps.interactive, "
+            + ", ".join(f"g2o_tpu_torch.examples.{m}" for m in EXAMPLES)
+            + ", chip_smoke")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
