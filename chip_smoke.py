@@ -213,6 +213,37 @@ exits non-zero without printing a result:
     ``[examples]``, all 16 scripts of ``g2o_tpu_torch/examples`` with
     ``-device cuda`` against ``-device cpu``.
 
+15. the multi-process paths and mixed precision (``g2o_tpu_torch.parallel``,
+    ``state_dtype``): the worker ``python -m g2o_tpu_torch.parallel.worker``
+    as two Gloo processes, each rank's tensors on ``cuda:0`` (NCCL refuses
+    two ranks on one card), and as one NCCL process, each rank counting its
+    own kernel launches.  ``[sharded_sphere]``: sphere2500 (Huber 1.0,
+    padded to 2 ranks), one f64 ``make_fused_step`` with chunk2 (K1/K2 at
+    (1, 960, 960)) and jacobi PCG against the same step in one process
+    (estimates within 1e-8, chi2 within 1e-10), then 5 f32 LM iterations
+    of the main path's chunk2 PCG: ms per λ-trial unsharded, at two Gloo
+    ranks and at one NCCL rank, all-reduce calls per trial and host ms per
+    call; ``[sharded_manhattan]``: ``create_manhattan(3500, seed=7)`` over
+    the ``(hosts=2, edges=1)`` mesh through ``shard_problem_data_global``,
+    10 f64 ``optimize_fused`` iterations of ``PCGSolver(max_iter=100,
+    tol=1e-10)``: the iteration counts the one-process run's, the chi2
+    histories within 1e-8; ``[sharded_schur_ladybug]``: ladybug with
+    ``SchurSolver(mesh=, use_pallas=True)``, one f64 solve against one
+    process (dx within 1e-9), 10 f32 LM iterations (chi2 <= 49278.23, K4
+    launched), and K4 held and timed at one rank's pair batch;
+    ``[sharded_implicit_ladybug]``: ladybug with ``bucket_landmarks=True``,
+    ``ImplicitSchurSolver`` in its dims-major layout, one f64 step against
+    one process (estimates within 1e-8 relative, K5/K6 launched), and K5
+    and K6 held and timed at one rank's slab rows; ``[mixed_manhattan]``:
+    ``create_manhattan(3500, seed=0)`` compiled mixed (``dtype=float32,
+    state_dtype=float64``), f64 and f32, 8 Gauss-Newton iterations over
+    ``SupernodalCholeskySolver`` from the original estimates each, the
+    mixed run going on in blocks of 8 until its chi2 is within 1e-4 of
+    the f64 run's (48 iterations at most): all three beside the
+    reference's gn_var, the iterations the mixed run took, ms per
+    iteration (its panels reach no hand-written kernel);
+    ``[done_parallel]``.
+
 Each main path also runs ``TRACE_ITERS`` (2) LM iterations under
 ``torch.profiler`` and
 prints a ``[trace_*]`` line: the card's busy time per λ-trial against the
@@ -504,6 +535,31 @@ EXAMPLES = (
     ("ba_anchored_inverse_depth", [], EXAMPLE_RTOL),
     ("bal_example", [], EXAMPLE_RTOL),
 )
+
+# phase 15: the ranks of the sharded runs (two Gloo processes on one card;
+# NCCL refuses two ranks on one card, so its run has one), the bars of the
+# sharded runs against the same computation in one process, the explicit
+# Schur run's bound (the reference g2o's chi2 after 10 LM iterations +1%,
+# PERF.md section 2), the mixed-precision run's iterations and its bar (the
+# JAX package's test_mixed_precision.py).  From the original estimates the
+# f32 supernodal solves slow Gauss-Newton down: on an NVIDIA H100 80GB HBM3
+# (700 W) the mixed run stood 1.8e-3 to 4.3e-3 above the f64 run after 8
+# iterations and 5.1e-4 after 16 (PERF.md section 6), so it runs in blocks
+# of 8 until it is within the bar, MIXED_MAX_ITERS at most, and prints the
+# iterations it took
+PARALLEL_WORLD = 2
+PARALLEL_TIMEOUT = 480
+SHARDED_EST_ATOL = 1e-8           # __graft_entry__.py's sharded-step bar
+SHARDED_CHI2_RTOL = 1e-10
+SHARDED_HIST_RTOL = 1e-8
+SHARDED_SCHUR_DX_ATOL = 1e-9      # test_sharded_schur_matches_single
+SHARDED_IMPLICIT_RTOL = 1e-8
+SHARDED_SCHUR_BOUND = 49278.23
+SHARDED_ITERS = 10
+SHARDED_MANHATTAN_POSES = 3500
+MIXED_ITERS = 8
+MIXED_MAX_ITERS = 48
+MIXED_RTOL = 1e-4
 
 # the shape each kernel's entry in the JSON line reports
 PRIMARY = {"chol_batched": (1, 960, 960),
@@ -2398,6 +2454,8 @@ def _sim_kernel_shapes(name, solver, coarse):
         return {(1, n, n): KERNELS[:2]}
     d = solver.meta["d"]
     groups = [g for g in solver._static["groups"] if g["spb"] * d > 96]
+    if not groups:
+        return {}
     g = max(groups, key=lambda g: g["S"] * g["spb"] ** 3)
     S, sd, md = g["S"], g["spb"] * d, g["mpb"] * d
     out = {(S, sd, sd): KERNELS[:1], (S, sd, 1): KERNELS[1:3]}
@@ -3615,6 +3673,373 @@ def apps_phase(torch, g2o, wrappers, card, keep):
     return by_path
 
 
+def _spawn_workers(nproc, backend, cases, out, timeout=PARALLEL_TIMEOUT):
+    """Run ``python -m g2o_tpu_torch.parallel.worker`` as ``nproc``
+    processes on the card (every rank's tensors on ``cuda:0``) and wait
+    for them; a process that exits non-zero fails the phase.  Returns rank
+    0's results and the kernel launches of every rank."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("LOCAL_WORLD_SIZE", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "g2o_tpu_torch.parallel.worker",
+         "--init-method", f"tcp://127.0.0.1:{port}", "--nproc", str(nproc),
+         "--pid", str(r), "--device", "cuda", "--backend", backend,
+         "--case", cases, "--iters", str(SHARDED_ITERS),
+         "--n-poses", str(SHARDED_MANHATTAN_POSES), "--g2o", DATASET,
+         "--bal", os.path.join(BAL, LADYBUG), "--out", out],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(nproc)]
+    try:
+        logs = [pr.communicate(timeout=timeout)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for r, (pr, log) in enumerate(zip(procs, logs)):
+        if pr.returncode != 0:
+            raise RuntimeError(f"parallel worker rank {r} ({backend}, "
+                               f"{cases}) exited {pr.returncode}:\n"
+                               f"{log[-4000:]}")
+    with open(out) as fh:
+        res = json.load(fh)
+    ranks = [res["launches"]]
+    for r in range(1, nproc):
+        with open(f"{out}.rank{r}") as fh:
+            ranks.append(json.load(fh)["launches"])
+    return res, ranks
+
+
+def _rank_sum(ranks, path):
+    """A path's launches, summed over the ranks."""
+    out = {}
+    for launches in ranks:
+        for k, v in launches.get(path, {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _need_launched(path, launches, kernels):
+    if any(launches.get(k, 0) < 1 for k in kernels):
+        raise RuntimeError(f"{path}: a kernel was not launched in the "
+                           f"ranks' run: {launches}")
+
+
+def sharded_kernel_phase(torch, sk, oh, k4, k56):
+    """K4 at one rank's pair batch of the sharded explicit Schur run, and
+    K5 (the dims-major gather) and K6 (the dims-major segment sum, D = 9
+    and 81) at one rank's slab rows of the sharded implicit run, each with
+    that run's own ids: against their plain versions (float32, and float64
+    for the gathers' bits and the sums' tolerance), then timed in float32
+    beside the plain version and the library call, in turns, with the
+    bound and the device µs and operations of one call.  Returns
+    ``{shape: {kernel: facts}}``."""
+    rng = np.random.default_rng(15)
+    out = {}
+    M, ids, S = k4["M"], k4["ids"], int(k4["S"])
+    N, D = M.shape
+    got, want = sk.segment_sum(M, ids, S), sk.segment_sum_plain(M, ids, S)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    shape = f"{N}x{D}->{S}"
+    phase("kernels", kernel="segment_sum", dtype="float32", shape=shape,
+          ids="sharded_schur_rank0", rel_err=f"{rel:.3e}",
+          tol=TOL["float32"], ok=rel <= TOL["float32"])
+    if not rel <= TOL["float32"]:
+        raise RuntimeError(f"segment_sum disagrees with its plain version "
+                           f"at the sharded pairs {shape}: {rel}")
+    Z = torch.zeros((S, D), dtype=M.dtype, device="cuda")
+    t = _in_turns(torch, {
+        "plain_ms": lambda: sk.segment_sum_plain(M, ids, S),
+        "library_ms": lambda: torch.index_add(Z, 0, ids, M),
+        "ms": lambda: sk.segment_sum(M, ids, S)})
+    b_ms, b_by = bound("segment_sum", (N, D, S))
+    dev_us, ops = device_profile(torch, lambda: sk.segment_sum(M, ids, S))
+    out[shape] = {"segment_sum": dict(
+        max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+        library_ms=t["library_ms"], bound_ms=b_ms, bound_by=b_by,
+        device_us_per_call=dev_us, device_ops_per_call=ops)}
+    phase("kernel_times", kernel="segment_sum", path="sharded_schur_rank0",
+          shape=shape, dtype="float32", ms=f"{t['ms']:.4f}",
+          plain_ms=f"{t['plain_ms']:.4f}",
+          library_ms=f"{t['library_ms']:.4f}", bound_ms=f"{b_ms:.4f}",
+          bound_by=b_by, device_us_per_call=f"{dev_us:.2f}",
+          device_ops_per_call=ops)
+    ids, S = k56["ids"], int(k56["S"])
+    N = ids.shape[0]
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        for D in (9, 81):
+            table = torch.as_tensor(rng.standard_normal((S, D)), dtype=dtype,
+                                    device="cuda")
+            rows_t = torch.as_tensor(rng.standard_normal((D, N)),
+                                     dtype=dtype, device="cuda")
+            fns = {"onehot_gather_t": (
+                       lambda: oh.onehot_gather_t(ids, table),
+                       lambda: oh.onehot_gather_t_plain(ids, table)),
+                   "onehot_scatter_add_t": (
+                       lambda: oh.onehot_scatter_add_t(ids, rows_t, S),
+                       lambda: oh.onehot_scatter_add_t_plain(ids, rows_t,
+                                                              S))}
+            rel, err = {}, {}
+            for k, (kern, plain) in fns.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err[k] = (got - want).abs().max().item()
+                rel[k] = err[k] / max(want.abs().max().item(), 1e-300)
+            same = torch.equal(fns["onehot_gather_t"][0](),
+                               fns["onehot_gather_t"][1]())
+            shape = f"{N}x{D}<->{S}"
+            ok = rel["onehot_scatter_add_t"] <= TOL[dname] and same
+            phase("kernels", kernel="gather_t+segment_sum_t", dtype=dname,
+                  shape=shape, ids="sharded_implicit_rank0",
+                  **{f"{k}_rel_err": f"{v:.3e}" for k, v in rel.items()},
+                  gather_bit_equal=same, tol=TOL[dname], ok=ok)
+            if not ok:
+                raise RuntimeError(f"a dims-major kernel disagrees with its "
+                                   f"plain version at {dname} {shape}: "
+                                   f"{rel}, gather bit-equal {same}")
+            if dtype != torch.float32:
+                continue
+            tzt = torch.cat([table, table.new_zeros((1, D))]).T.contiguous()
+            Zt = tzt.new_zeros((D, S + 1))
+            lib = {"onehot_gather_t": lambda: torch.index_select(tzt, 1, ids),
+                   "onehot_scatter_add_t": lambda: torch.index_add(
+                       Zt, 1, ids, rows_t)}
+            for k, (kern, plain) in fns.items():
+                if k == "onehot_gather_t" and D != 9:
+                    continue          # the paths gather the (49, 9) states
+                t = _in_turns(torch, {"plain_ms": plain,
+                                      "library_ms": lib[k], "ms": kern},
+                              reps=200, rounds=6)
+                dev_us, ops = device_profile(torch, kern)
+                entry = ("onehot_gather" if "gather" in k
+                         else "onehot_scatter_add")
+                b_ms, b_by = bound(entry, (N, D, S))
+                out[f"sharded_implicit:{k}:{shape}"] = {entry: dict(
+                    max_abs_err=err[k], ms=t["ms"], plain_ms=t["plain_ms"],
+                    library_ms=t["library_ms"], bound_ms=b_ms,
+                    bound_by=b_by, device_us_per_call=dev_us,
+                    device_ops_per_call=ops)}
+                phase("kernel_times", kernel=k, path="sharded_implicit_rank0",
+                      shape=shape, dtype="float32", ms=f"{t['ms']:.4f}",
+                      plain_ms=f"{t['plain_ms']:.4f}",
+                      library_ms=f"{t['library_ms']:.4f}",
+                      bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                      device_us_per_call=f"{dev_us:.2f}",
+                      device_ops_per_call=ops)
+    return out
+
+
+def mixed_phase(torch, g2o, ck, wrappers, times):
+    """``[mixed_manhattan]``: ``create_manhattan(3500, seed=0)`` compiled
+    three ways — float64, ``dtype=float32, state_dtype=float64`` (mixed)
+    and float32 — and ``MIXED_ITERS`` Gauss-Newton iterations
+    (``optimize_fused_gn``) with ``SupernodalCholeskySolver`` from the
+    original estimates on each; the mixed run goes on in blocks of
+    ``MIXED_ITERS`` until its chi2 is within ``MIXED_RTOL`` of the float64
+    run's (``MIXED_MAX_ITERS`` at most, else the phase fails).  Prints all
+    three beside the reference's gn_var, the mixed run's chi2 after
+    ``MIXED_ITERS`` and the iterations it took, ms per iteration; then
+    K1/K2/K3 held and timed at the shapes the mixed run gave them, if any:
+    manhattan3500's supernodal panels are at most 96 columns wide, which
+    the solver factors with ``torch.linalg`` (no hand-written kernel on
+    this path, as on phase 9's supernodal run).  Returns the mixed run's
+    launches (all its blocks)."""
+    from g2o_tpu_torch.sim.generators import create_manhattan
+
+    g = create_manhattan(n_poses=3500, seed=0)
+    runs, launches, chi_f64 = {}, None, None
+    for name, kw in (("f64", dict(dtype=torch.float64)),
+                     ("mixed", dict(dtype=torch.float32,
+                                    state_dtype=torch.float64)),
+                     ("f32", dict(dtype=torch.float32))):
+        p = g.compile(device="cuda", **kw)
+        est0 = {t: v.clone() for t, v in p.estimates.items()}
+        sn = g2o.SupernodalCholeskySolver().setup(p)
+        g2o.optimize_fused_gn(p, sn, 1)                    # warm-up
+        p.set_estimates(est0)
+        for w in wrappers.values():
+            w.launches = 0
+        res = g2o.optimize_fused_gn(p, sn, MIXED_ITERS)
+        run = dict(chi2_first_block=res["chi2_final"],
+                   iterations=res["iterations"], wall_s=res["wall_s"],
+                   chi2=res["chi2_final"])
+        while (name == "mixed" and run["iterations"] < MIXED_MAX_ITERS
+               and abs(run["chi2"] - chi_f64) > MIXED_RTOL * chi_f64
+               and res["iterations"] == MIXED_ITERS):
+            res = g2o.optimize_fused_gn(p, sn, MIXED_ITERS)
+            run["iterations"] += res["iterations"]
+            run["wall_s"] += res["wall_s"]
+            run["chi2"] = res["chi2_final"]
+        if name == "f64":
+            chi_f64 = run["chi2"]
+        if name == "mixed":
+            launches = {k: w.launches for k, w in wrappers.items()}
+            solver = sn
+        runs[name] = run
+    chi = {k: r["chi2"] for k, r in runs.items()}
+    rel = abs(chi["mixed"] - chi["f64"]) / chi["f64"]
+    phase("mixed_manhattan", solver="SupernodalCholeskySolver",
+          **{f"chi2_{k}_after_{MIXED_ITERS}": f"{r['chi2_first_block']:.6f}"
+             for k, r in runs.items()},
+          mixed_iterations=runs["mixed"]["iterations"],
+          chi2_mixed=f"{chi['mixed']:.6f}", gn_var=f"{MANHATTAN_GN:.6f}",
+          **{f"{k}_minus_gn_var": f"{v - MANHATTAN_GN:.6f}"
+             for k, v in chi.items()},
+          mixed_rel_diff_f64=f"{rel:.3e}", bar=MIXED_RTOL,
+          **{f"ms_per_iteration_{k}":
+             f"{r['wall_s'] * 1e3 / max(r['iterations'], 1):.3f}"
+             for k, r in runs.items()},
+          **{f"launches_{k}": v for k, v in launches.items() if v})
+    if not all(math.isfinite(c) for c in chi.values()):
+        raise RuntimeError(f"mixed_manhattan: a non-finite chi2 {chi}")
+    if not rel <= MIXED_RTOL:
+        raise RuntimeError(f"mixed_manhattan: mixed chi2 {chi['mixed']} "
+                           f"not within {MIXED_RTOL} of f64 {chi['f64']} "
+                           f"after {runs['mixed']['iterations']} iterations")
+    rng = np.random.default_rng(16)
+    for shape, timed in _sim_kernel_shapes("mixed", solver, None).items():
+        for dtype in (torch.float32, torch.float64):
+            res_k = chol_shape_check(torch, ck, rng, dtype, shape, timed,
+                                     tag="kernels_mixed")
+            if res_k:
+                times[_shape(*shape)] = res_k
+    return launches
+
+
+def parallel_phase(torch, g2o, ck, sk, oh, wrappers, times):
+    """Phase 15; returns the launch counts of each of its paths (the
+    sharded ones summed over the ranks)."""
+    t_phase = time.perf_counter()
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res, ranks = _spawn_workers(PARALLEL_WORLD, "gloo",
+                                    "sphere,manhattan,schur,implicit",
+                                    os.path.join(tmp, "gloo.json"))
+        nccl, nccl_ranks = _spawn_workers(1, "nccl", "sphere",
+                                          os.path.join(tmp, "nccl.json"))
+        k4 = torch.load(os.path.join(tmp, "gloo.json.k4.pt"),
+                        map_location="cuda")
+        k56 = torch.load(os.path.join(tmp, "gloo.json.k56.pt"),
+                         map_location="cuda")
+    sph, sph1 = res["sphere"], nccl["sphere"]
+    for pre in ("chunk2", "jacobi"):
+        for run in (sph, sph1):
+            st = run[f"step_{pre}"]
+            if not (st["max_abs_diff"] <= SHARDED_EST_ATOL
+                    and st["chi2_rel_diff"] <= SHARDED_CHI2_RTOL):
+                raise RuntimeError(f"sharded_sphere {pre} ({run['backend']} "
+                                   f"x{run['world']}): {st}")
+    u, g2, n1 = sph["lm_unsharded"], sph["lm_sharded"], sph1["lm_sharded"]
+    launches = _rank_sum(ranks + nccl_ranks, "sharded_sphere")
+    phase("sharded_sphere", ranks=PARALLEL_WORLD,
+          **{f"step_{pre}_{k}": (f"{v:.3e}" if isinstance(v, float) else v)
+             for pre in ("chunk2", "jacobi")
+             for k, v in sph[f"step_{pre}"].items()},
+          **{f"nccl1_step_{pre}_{k}": (f"{v:.3e}" if isinstance(v, float)
+                                       else v)
+             for pre in ("chunk2", "jacobi")
+             for k, v in sph1[f"step_{pre}"].items()},
+          est_atol=SHARDED_EST_ATOL, chi2_rtol=SHARDED_CHI2_RTOL,
+          lm_iterations=u["iterations"],
+          ms_per_trial_unsharded=f"{u['ms_per_trial']:.3f}",
+          ms_per_trial_gloo2=f"{g2['ms_per_trial']:.3f}",
+          ms_per_trial_nccl1=f"{n1['ms_per_trial']:.3f}",
+          chi2_final_unsharded=f"{u['chi2_final']:.4f}",
+          chi2_final_gloo2=f"{g2['chi2_final']:.4f}",
+          chi2_final_nccl1=f"{n1['chi2_final']:.4f}",
+          allreduce_calls_per_trial_gloo2=
+          f"{g2['allreduce_calls_per_trial']:.1f}",
+          allreduce_host_ms_per_call_gloo2=
+          f"{g2['allreduce_ms_per_call']:.4f}",
+          allreduce_kb_per_call_gloo2=
+          f"{g2['allreduce_bytes_per_call'] / 1e3:.1f}",
+          allreduce_host_ms_per_call_nccl1=
+          f"{n1['allreduce_ms_per_call']:.4f}",
+          **{f"launches_{k}": v for k, v in launches.items() if v})
+    _need_launched("sharded_sphere", launches, KERNELS[:2])
+    by_path["sharded_sphere"] = launches
+
+    man = res["manhattan"]
+    one, shd = man["one_process"], man["sharded"]
+    hist_rel = float(np.max(np.abs(np.subtract(
+        shd["chi2_per_iteration"], one["chi2_per_iteration"]))
+        / np.abs(one["chi2_per_iteration"])))
+    launches = _rank_sum(ranks, "sharded_manhattan")
+    phase("sharded_manhattan", poses=SHARDED_MANHATTAN_POSES,
+          mesh="x".join(f"{k}={v}" for k, v in man["mesh_shape"].items()),
+          iterations=shd["iterations"],
+          iterations_one_process=one["iterations"],
+          cg_equal=shd["cg_per_iteration"] == one["cg_per_iteration"],
+          chi2_hist_max_rel_diff=f"{hist_rel:.3e}", bar=SHARDED_HIST_RTOL,
+          chi2_final=f"{shd['chi2_final']:.6f}",
+          wall_s=f"{shd['wall_s']:.3f}",
+          wall_s_one_process=f"{one['wall_s']:.3f}",
+          allreduce_calls=shd["allreduce_calls"],
+          allreduce_host_ms_per_call=f"{shd['allreduce_ms_per_call']:.4f}")
+    if not (shd["iterations"] == one["iterations"]
+            and hist_rel <= SHARDED_HIST_RTOL):
+        raise RuntimeError(f"sharded_manhattan: {shd} against {one}")
+    by_path["sharded_manhattan"] = launches
+
+    sch = res["schur"]
+    st, u, g2 = sch["step"], sch["lm_unsharded"], sch["lm_sharded"]
+    launches = _rank_sum(ranks, "sharded_schur_ladybug")
+    phase("sharded_schur_ladybug", ranks=PARALLEL_WORLD,
+          step_dx_max_abs_diff=f"{st['max_abs_diff']:.3e}",
+          bar=SHARDED_SCHUR_DX_ATOL, pairs=st["n_pairs"],
+          pairs_per_rank=st["n_pairs_rank"], camera_pairs=st["n_uniq"],
+          iterations=g2["iterations"], chi2_final=f"{g2['chi2_final']:.4f}",
+          chi2_bound=SHARDED_SCHUR_BOUND,
+          chi2_final_unsharded=f"{u['chi2_final']:.4f}",
+          ms_per_trial_gloo2=f"{g2['ms_per_trial']:.3f}",
+          ms_per_trial_unsharded=f"{u['ms_per_trial']:.3f}",
+          allreduce_calls_per_trial=f"{g2['allreduce_calls_per_trial']:.1f}",
+          allreduce_host_ms_per_call=f"{g2['allreduce_ms_per_call']:.4f}",
+          allreduce_kb_per_call=f"{g2['allreduce_bytes_per_call'] / 1e3:.1f}",
+          **{f"launches_{k}": v for k, v in launches.items() if v})
+    if not (st["max_abs_diff"] <= SHARDED_SCHUR_DX_ATOL
+            and g2["chi2_final"] <= SHARDED_SCHUR_BOUND):
+        raise RuntimeError(f"sharded_schur_ladybug: {st}, {g2}")
+    _need_launched("sharded_schur_ladybug", launches, ("segment_sum",))
+    by_path["sharded_schur_ladybug"] = launches
+
+    imp = res["implicit"]
+    launches = _rank_sum(ranks, "sharded_implicit_ladybug")
+    phase("sharded_implicit_ladybug", ranks=PARALLEL_WORLD,
+          layout=imp["layout"],
+          est_max_rel_diff=f"{imp['max_rel_diff']:.3e}",
+          bar=SHARDED_IMPLICIT_RTOL,
+          chi2_rel_diff=f"{imp['chi2_rel_diff']:.3e}",
+          step_ms=f"{imp['step_ms']:.2f}",
+          allreduce_calls=imp["allreduce_calls"],
+          allreduce_host_ms_per_call=f"{imp['allreduce_ms_per_call']:.4f}",
+          **{f"launches_{k}": v for k, v in launches.items() if v})
+    if not (imp["layout"] == "dm"
+            and imp["max_rel_diff"] <= SHARDED_IMPLICIT_RTOL):
+        raise RuntimeError(f"sharded_implicit_ladybug: {imp}")
+    _need_launched("sharded_implicit_ladybug", launches,
+                   ("onehot_gather_t", "onehot_scatter_add_t"))
+    by_path["sharded_implicit_ladybug"] = launches
+
+    times.update(sharded_kernel_phase(torch, sk, oh, k4, k56))
+    by_path["mixed_manhattan"] = mixed_phase(torch, g2o, ck, wrappers, times)
+    phase("done_parallel", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          **{f"rank0_seconds_{case}": f"{res[case]['seconds']:.1f}"
+             for case in ("sphere", "manhattan", "schur", "implicit")},
+          rank0_seconds_nccl_sphere=f"{sph1['seconds']:.1f}")
+    return by_path
+
+
 def main():
     import torch
 
@@ -3655,6 +4080,7 @@ def main():
     by_path.update(sim_phase(torch, g2o, ck, wrappers, times, keep))
     by_path.update(cli_phase(torch, g2o, ck, wrappers, times))
     by_path.update(apps_phase(torch, g2o, wrappers, card, keep))
+    by_path.update(parallel_phase(torch, g2o, ck, sk, oh, wrappers, times))
     # a new kernel's launches are its wrappers' launches
     for counts in by_path.values():
         for k, ws in NEW_KERNELS.items():

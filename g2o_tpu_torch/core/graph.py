@@ -246,6 +246,7 @@ class Graph:
                 pad_edges_to_multiple: int = 1,
                 bucket_landmarks: bool = False,
                 static_kernels: bool = True,
+                state_dtype=None,
                 assembly_precision: str = "highest"):
         """Freeze the edges of ``level`` into a :class:`Problem` of
         ``dtype`` tensors on ``device`` (float64 when ``dtype`` is None);
@@ -254,11 +255,15 @@ class Graph:
         implicit Schur solver.  ``static_kernels=False`` keeps the robust
         kernel dispatch per row (no batch-uniform kernel id is frozen), as
         needed when kernel ids are written after compile — the
-        capacity-padded incremental mode."""
+        capacity-padded incremental mode.  ``state_dtype`` wider than
+        ``dtype`` keeps the estimates and the whole linearization wide and
+        hands the solvers its results rounded to ``dtype`` once (mixed
+        precision, ``core/problem.py``)."""
         from g2o_tpu_torch.core.problem import compile_graph
 
         return compile_graph(self, dtype=dtype, device=device, level=level,
                              pad_edges_to_multiple=pad_edges_to_multiple,
                              bucket_landmarks=bucket_landmarks,
                              static_kernels=static_kernels,
+                             state_dtype=state_dtype,
                              assembly_precision=assembly_precision)

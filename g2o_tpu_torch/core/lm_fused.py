@@ -17,6 +17,11 @@ candidate's linearization is carried into the next iteration, so no
 residual pass is repeated.  :func:`optimize_fused_gn` is the reference GN
 (``optimization_algorithm_gauss_newton.cpp:50``) in the same style: a
 solve at λ = 0 and the update, no trust region.
+The chi2 histories are the linearization's chi2, read as Python floats:
+at ``state_dtype`` for a mixed-precision problem.  On sharded data
+(``g2o_tpu_torch.parallel``) every value read here — chi2, λ₀ from the
+diagonal blocks, the gain ratio's ``dxᵀ(λ dx + b)`` — is replicated, so
+every rank takes the same decisions.
 :class:`FusedLevenbergMarquardt` is the same LM iteration as an algorithm
 of :class:`~g2o_tpu_torch.core.optimizer.SparseOptimizer`.
 """

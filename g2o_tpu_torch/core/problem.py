@@ -13,6 +13,22 @@ port of ``g2o_tpu/core/problem.py``.
   :meth:`Problem.hvp_operator` (gather, ``WJ·v``, ``Jcatᵀz``, ``index_add_``).
   The dense solver assembles it with :meth:`Problem.dense_hessian_fn`.
 
+Sharded data (:func:`g2o_tpu_torch.parallel.shard_problem_data`): every
+edge batch holds one contiguous slice of its rows on each process of a
+``torch.distributed`` group (``ProblemData.group``); estimates and
+everything per vertex stay replicated.  Each sum over edges into a
+replicated result is completed by :func:`edge_sum_` (one
+``all_reduce(SUM)``), so every process ends with the same numbers; with no
+group, or a group of one, the code is the unsharded code.
+
+``state_dtype`` wider than ``dtype`` (mixed precision): estimates,
+measurements, information and parameters are stored wide, and the whole
+linearization, chi2 and ``oplus`` run at ``state_dtype``; the
+:class:`LinearizedSystem` leaves the solvers see are rounded to ``dtype``
+once, at the end.  Rounding the wide-assembled ``b`` is a relative error,
+so the Gauss-Newton fixed point is the wide one; assembling ``b`` narrow
+leaves an absolute summation noise that floors the fixed point above it.
+
 ``bucket_landmarks=True`` lays bundle adjustment out for the implicit
 Schur solver (``g2o_tpu_torch/ops/bucketed.py``): the landmarks of a type
 observed by one edge type are reordered into bucket order, the observation
@@ -29,10 +45,12 @@ The entry points build on the CUDA card unless the caller passes
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import jvp, vjp, vmap
 
 from g2o_tpu_torch.core.types import REGISTRY, EdgeType
@@ -65,6 +83,89 @@ class ProblemData(NamedTuple):
     # ids, "ids32": (k, E) int32 slot ids for the kernels, "meas_t" (m, E),
     # "info_t" (r, r, E), "free_mask" (E, k), "free_mask_t" (k, E)}
     plans: dict = {}
+    # the torch.distributed group the edge rows are sharded over (each
+    # process holds rows [rank·n, (rank+1)·n) of every batch); None: every
+    # row is here
+    group: object = None
+
+
+# the edge-axis of each per-edge plan tensor (the others are per vertex)
+PLAN_EDGE_AXIS = {"ids32": -1, "meas_t": -1, "info_t": -1, "free_mask": 0,
+                  "free_mask_t": -1}
+
+# all-reduces of edge sums in this process: calls, bytes, host seconds
+REDUCE_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def shard_rank(data):
+    """``(rank, world)`` of this process in ``data``'s shard group;
+    ``(0, 1)`` for unsharded data."""
+    if data.group is None:
+        return 0, 1
+    return dist.get_rank(data.group), dist.get_world_size(data.group)
+
+
+def row_window(data, name):
+    """``(lo, n)``: this process holds rows ``[lo, lo + n)`` of edge batch
+    ``name``."""
+    n = int(data.edges[name].vidx.shape[0])
+    return shard_rank(data)[0] * n, n
+
+
+def edge_sum_(data, *tensors):
+    """Complete sums over the edge rows of sharded data, in place: one
+    ``all_reduce(SUM)`` over ``data.group`` for all ``tensors`` of one
+    dtype.  A no-op for unsharded data."""
+    all_reduce_sum_(data.group, *tensors)
+
+
+def all_reduce_sum_(group, *tensors):
+    """In place, one ``all_reduce(SUM)`` over ``group`` for all ``tensors``
+    of one dtype (concatenated); a no-op when ``group`` is None."""
+    if group is None or not tensors:
+        return
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        buf = (ts[0].reshape(-1).clone() if len(ts) == 1
+               else torch.cat([t.reshape(-1) for t in ts]))
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=group)
+        REDUCE_STATS["seconds"] += time.perf_counter() - t0
+        REDUCE_STATS["calls"] += 1
+        REDUCE_STATS["bytes"] += buf.numel() * buf.element_size()
+        off = 0
+        for t in ts:
+            t.copy_(buf[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+
+
+def replicated_part(data, x):
+    """A copy of ``x`` on the first process of ``data``'s group, zeros on
+    the others: a replicated term added into a sum before :func:`edge_sum_`
+    counts once.  ``x`` itself for unsharded data."""
+    if data.group is None:
+        return x
+    return x.clone() if shard_rank(data)[0] == 0 else torch.zeros_like(x)
+
+
+def full_rows(data, x, axis=0):
+    """The rows of every process of ``data``'s group, in order, along
+    ``axis`` (the unsharded batch): this process's rows written into a
+    zeroed full buffer, summed over the group.  ``x`` for unsharded
+    data."""
+    rank, world = shard_rank(data)
+    if data.group is None:
+        return x
+    axis = axis % x.dim()
+    n = x.shape[axis]
+    shape = list(x.shape)
+    shape[axis] = n * world
+    out = x.new_zeros(shape)
+    out.narrow(axis, rank * n, n).copy_(x)
+    edge_sum_(data, out)
+    return out
 
 
 class BucketedEdgeSpec(NamedTuple):
@@ -115,7 +216,7 @@ class Problem:
                  estimates: dict, marginalized: dict, vid_index: dict,
                  type_bases: dict, total_dim: int, dtype, device,
                  uniform_kernel=None, assembly_precision: str = "highest",
-                 n_active_edges=None, bucket_specs=None):
+                 n_active_edges=None, bucket_specs=None, state_dtype=None):
         # accepted for API parity with the JAX package: the port assembles
         # in full precision either way (TF32 is off package-wide)
         if assembly_precision not in ("highest", "default"):
@@ -132,6 +233,9 @@ class Problem:
         self.type_bases = type_bases        # type name -> flat tangent base offset
         self.total_dim = int(total_dim)
         self.dtype = dtype
+        # the dtype of the estimates and of the whole linearization; the
+        # solvers see its results rounded to ``dtype`` (module docstring)
+        self.state_dtype = dtype if state_dtype is None else state_dtype
         self.device = torch.device(device)
         # edge name -> static kernel id when the whole batch shares one
         # kernel (one kernel evaluated instead of all ten and a select)
@@ -171,13 +275,13 @@ class Problem:
     # per-edge residuals and Jacobians
     # ------------------------------------------------------------------ #
 
-    def _slab_rows(self, est, name, plans, n_rows):
-        """The landmark states of bucketed batch ``name``, row by row
-        ``(n_rows, rep)``: one bucket-order read of the landmark estimates
-        and a broadcast per slab (every row of a slab segment, its padding
-        included, is that segment's landmark).  Rows past the slab-covered
-        prefix (``pad_edges_to_multiple``) repeat batch row 0, the first
-        segment's first row."""
+    def _slab_rows(self, est, name, plans, n_rows, lo=0):
+        """The landmark states of rows ``[lo, lo + n_rows)`` of bucketed
+        batch ``name`` ``(n_rows, rep)``: one bucket-order read of the
+        landmark estimates and a broadcast per slab (every row of a slab
+        segment, its padding included, is that segment's landmark).  Rows
+        past the slab-covered prefix (``pad_edges_to_multiple``) repeat
+        batch row 0, the first segment's first row."""
         spec = self.bucket_specs[name]
         n_used = sum(spec.counts)
         est_used = (est[:n_used] if spec.seg_identity
@@ -188,23 +292,24 @@ class Problem:
             rows.append(v[None].expand(dg, nseg, v.shape[1]).reshape(
                 nseg * dg, v.shape[1]))
             off += nseg
-        tail = n_rows - spec.n_rows
-        if tail:
+        tail = lo + n_rows - spec.n_rows
+        if tail > 0:
             rows.append(est_used[:1].expand(tail, est_used.shape[1]))
-        return torch.cat(rows, dim=0)
+        return torch.cat(rows, dim=0)[lo:lo + n_rows]
 
     def _states(self, et: EdgeType, batch: EdgeBatchData, estimates,
-                name=None, plans=None):
+                name=None, plans=None, lo=0):
         """Per-edge vertex states, row-major ``(E, rep)`` per slot.  A
         bucketed batch reads its landmarks per slab and gathers its cameras
-        with the gather kernel — the same rows as the plain row gather."""
+        with the gather kernel — the same rows as the plain row gather;
+        ``lo`` is the batch's first row on this process (sharded data)."""
         spec = self.bucket_specs.get(name) if plans is not None else None
         states = []
         for s, vt in enumerate(et.vertex_types):
             t = vt.name
             if spec is not None and s == spec.lm_slot:
                 states.append(self._slab_rows(estimates[t], name, plans,
-                                              batch.vidx.shape[0]))
+                                              batch.vidx.shape[0], lo))
             elif spec is not None and s == spec.pose_slot:
                 states.append(onehot_gather(plans[name]["ids32"][s],
                                             estimates[t]))
@@ -264,18 +369,24 @@ class Problem:
     def chi2_fn(self, data: ProblemData, estimates):
         """(robust chi2, plain chi2) — reference ``activeRobustChi2`` /
         ``activeChi2`` (``g2o/core/sparse_optimizer.cpp:94-116``)."""
-        total_r = torch.zeros((), dtype=self.dtype, device=self.device)
-        total_p = torch.zeros((), dtype=self.dtype, device=self.device)
+        sdt = self.state_dtype
+        total_r = torch.zeros((), dtype=sdt, device=self.device)
+        total_p = torch.zeros((), dtype=sdt, device=self.device)
         for name, et in self.edge_types.items():
             batch = data.edges[name]
             e = et.residual(self._states(et, batch, estimates, name,
-                                         data.plans),
+                                         data.plans,
+                                         row_window(data, name)[0]),
                             batch.meas, batch.param)
             e2 = torch.einsum("er,ers,es->e", e, batch.info, e)
             rho = self._robustify(name, batch, e2)
-            act = batch.active.to(self.dtype)
+            act = batch.active.to(sdt)
             total_r = total_r + torch.sum(rho[:, 0] * act)
             total_p = total_p + torch.sum(e2 * act)
+        if data.group is not None:
+            tot = torch.stack([total_r, total_p])
+            edge_sum_(data, tot)
+            total_r, total_p = tot[0], tot[1]
         return total_r, total_p
 
     def edge_chi2_fn(self, data: ProblemData, estimates):
@@ -286,7 +397,8 @@ class Problem:
         for name, et in self.edge_types.items():
             batch = data.edges[name]
             e = et.residual(self._states(et, batch, estimates, name,
-                                         data.plans),
+                                         data.plans,
+                                         row_window(data, name)[0]),
                             batch.meas, batch.param)
             e2 = torch.einsum("er,ers,es->e", e, batch.info, e)
             rho = self._robustify(name, batch, e2)
@@ -294,15 +406,21 @@ class Problem:
         return out
 
     def linearize_fn(self, data: ProblemData, estimates) -> LinearizedSystem:
+        """Residuals, Jacobians, robust weights, ``b``, the diagonal blocks
+        and chi2 at ``estimates``, all at ``state_dtype``; the solver-facing
+        leaves are rounded to ``dtype`` once at the end (chi2 stays wide).
+        On sharded data one all-reduce completes ``b``, the diagonal blocks,
+        chi2 and the bucketed batches' landmark sums."""
+        sdt = self.state_dtype
         b_blocks = {t: torch.zeros((self.counts[t], vt.tangent_dim),
-                                   dtype=self.dtype, device=self.device)
+                                   dtype=sdt, device=self.device)
                     for t, vt in self.vertex_types.items()}
         diag = {t: torch.zeros((self.counts[t], vt.tangent_dim, vt.tangent_dim),
-                               dtype=self.dtype, device=self.device)
+                               dtype=sdt, device=self.device)
                 for t, vt in self.vertex_types.items()}
         jacs, weights, errors, extras = {}, {}, {}, {}
-        chi2_r = torch.zeros((), dtype=self.dtype, device=self.device)
-        chi2_p = torch.zeros((), dtype=self.dtype, device=self.device)
+        chi2_r = torch.zeros((), dtype=sdt, device=self.device)
+        chi2_p = torch.zeros((), dtype=sdt, device=self.device)
         for name, et in self.edge_types.items():
             batch = data.edges[name]
             if name in self.bucket_specs:
@@ -320,7 +438,7 @@ class Problem:
             Js = tuple(J * fm[:, s, None, None] for s, J in enumerate(Js))
             e2 = torch.einsum("er,ers,es->e", e, batch.info, e)
             rho = self._robustify(name, batch, e2)
-            act = batch.active.to(self.dtype)
+            act = batch.active.to(sdt)
             chi2_r = chi2_r + torch.sum(rho[:, 0] * act)
             chi2_p = chi2_p + torch.sum(e2 * act)
             # robust information rho' * Omega (BaseEdge::robustInformation;
@@ -334,8 +452,28 @@ class Problem:
                 b_blocks[t].index_add_(0, batch.vidx[:, s], brows)
                 diag[t].index_add_(0, batch.vidx[:, s], Hss)
             jacs[name], weights[name], errors[name] = Js, W, e
-        return LinearizedSystem(jacs, weights, errors,
-                                self.join_tangent(b_blocks), diag, chi2_r,
+        if data.group is not None:
+            chi2 = torch.stack([chi2_r, chi2_p])
+            edge_sum_(data, *b_blocks.values(), *diag.values(), chi2,
+                      *(ext[k] for ext in extras.values()
+                        for k in ("bl_bucket_t", "Hll_bucket_t")))
+            chi2_r, chi2_p = chi2[0], chi2[1]
+            for ext in extras.values():     # the row-major views, anew
+                ext["bl_bucket"] = ext["bl_bucket_t"].T
+                ext["Hll_bucket"] = ext["Hll_bucket_t"].T.reshape(
+                    ext["Hll_bucket"].shape)
+        b = self.join_tangent(b_blocks)
+        if sdt != self.dtype:
+            def narrow(tree):
+                if isinstance(tree, torch.Tensor):
+                    return tree.to(self.dtype)
+                if isinstance(tree, dict):
+                    return {k: narrow(v) for k, v in tree.items()}
+                return tuple(narrow(v) for v in tree)
+
+            jacs, weights, errors, extras, b, diag = narrow(
+                (jacs, weights, errors, extras, b, diag))
+        return LinearizedSystem(jacs, weights, errors, b, diag, chi2_r,
                                 chi2_p, extras)
 
     def _linearize_bucketed(self, name, et, batch, data, estimates,
@@ -350,8 +488,9 @@ class Problem:
         over the contracted axis, in the JAX package's order."""
         spec = self.bucket_specs[name]
         plan = data.plans[name]
+        lo, n_here = row_window(data, name)
         e, Js = residuals_and_jacobians(
-            et, self._states(et, batch, estimates, name, data.plans),
+            et, self._states(et, batch, estimates, name, data.plans, lo),
             batch.meas, batch.param)
         fm_t = plan["free_mask_t"]
         Jt = tuple(J.permute(1, 2, 0).contiguous() * fm_t[s]     # (r, d, E)
@@ -361,14 +500,21 @@ class Problem:
         e2 = torch.sum(e_t[:, None, :] * info_t * e_t[None, :, :],
                        dim=(0, 1))
         rho = self._robustify(name, batch, e2)
-        act = batch.active.to(self.dtype)
+        act = batch.active.to(self.state_dtype)
         Wt = info_t * (rho[:, 1] * act)[None, None, :]
         Wet = torch.sum(Wt * e_t[None, :, :], dim=1)             # (r, E)
         nb = spec.n_rows
 
         def slab_sum(z):
             """(k, E) rows -> (k, S_used) per-landmark sums: a (k, deg, n)
-            view of each degree-major slab, summed over deg."""
+            view of each degree-major slab, summed over deg.  Sharded, this
+            process's rows sit in a zeroed (k, n_rows) buffer: its partial
+            sums, which the linearization's all-reduce completes."""
+            if data.group is not None:
+                zf = z.new_zeros((z.shape[0], nb))
+                m = max(0, min(n_here, nb - lo))
+                zf[:, lo:lo + m] = z[:, :m]
+                z = zf
             out, off = [], 0
             for n, dg in zip(spec.counts, spec.degrees):
                 out.append(z[:, off:off + n * dg].reshape(
@@ -450,6 +596,7 @@ class Problem:
                     out[vt.name].index_add_(0, vidx[:, s],
                                             contrib[:, off:off + d])
                     off += d
+            edge_sum_(data, *out.values())
             return out
 
         return hvp
@@ -485,16 +632,18 @@ class Problem:
                         flat_t = idxs[j][:, :, None] * T + idxs[i][:, None, :]
                         H.index_add_(0, flat_t.reshape(-1),
                                      Hij.transpose(1, 2).reshape(-1))
+        edge_sum_(data, H)
         return H.reshape(T, T) + torch.diag(data.fixed_flat)
 
     def apply_update_fn(self, data: ProblemData, estimates, dx):
         """x ⊞ dx per vertex type, fixed vertices pinned — reference
         ``SparseOptimizer::update`` (``g2o/core/sparse_optimizer.cpp:441``)."""
         blocks = self.split_tangent(dx)
+        sdt = self.state_dtype
         out = {}
         for t, vt in self.vertex_types.items():
-            free = 1.0 - data.fixed[t].to(self.dtype)
-            out[t] = vt.oplus(estimates[t], blocks[t] * free[:, None])
+            free = 1.0 - data.fixed[t].to(sdt)
+            out[t] = vt.oplus(estimates[t], blocks[t].to(sdt) * free[:, None])
         return out
 
 
@@ -560,7 +709,7 @@ def _device(device):
 def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
                   pad_edges_to_multiple=1, assembly_precision="highest",
                   registry=None, bucket_specs=None, segps=None,
-                  static_kernels=True):
+                  static_kernels=True, state_dtype=None):
     """Shared tail of :func:`build_problem` and :func:`problem_from_numpy`:
     ``vertex_arrays`` is ``{type name: (estimates (N, rep), fixed (N,),
     marginalized (N,))}`` in internal vertex order, ``edge_arrays`` is
@@ -568,10 +717,15 @@ def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
     ``bucket_specs``/``segps`` (edge name -> spec / bucket-order landmark
     ids) mark the batches already laid out in bucketed slabs.
     ``static_kernels=False`` freezes no uniform robust-kernel id: every
-    batch dispatches on its per-row kernel ids."""
+    batch dispatches on its per-row kernel ids.  Estimates, measurements,
+    information, robust widths and parameters are stored at
+    ``state_dtype``: they are the constants of the wide residual, and
+    rounding them to ``dtype`` would move the fixed point as rounding the
+    states would."""
     bucket_specs = bucket_specs or {}
     registry = registry or REGISTRY
     dtype = torch.float64 if dtype is None else dtype
+    sdt = dtype if state_dtype is None else state_dtype
     device = _device(device)
     vertex_types, counts, type_bases, estimates, fixed, fixed_np = \
         {}, {}, {}, {}, {}, {}
@@ -590,7 +744,7 @@ def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
             device=device)
         fixed_flat.append(np.repeat(fx, vt.tangent_dim))
         base += counts[t] * vt.tangent_dim
-        estimates[t] = torch.tensor(est, dtype=dtype, device=device)
+        estimates[t] = torch.tensor(est, dtype=sdt, device=device)
         fixed[t] = torch.tensor(fx, device=device)
         fixed_np[t] = fx
         marginalized[t] = np.asarray(mg, dtype=bool).reshape(-1).copy()
@@ -629,12 +783,12 @@ def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
 
         edges[name] = EdgeBatchData(
             vidx=ten(vidx, torch.int64),
-            meas=ten(a["meas"]),
-            info=ten(a["info"]),
+            meas=ten(a["meas"], sdt),
+            info=ten(a["info"], sdt),
             kernel=ten(a["kernel"], torch.int64),
-            delta=ten(a["delta"]),
+            delta=ten(a["delta"], sdt),
             active=ten(a["active"], torch.bool),
-            param=ten(a["param"]),
+            param=ten(a["param"], sdt),
         )
         if name in bucket_specs:
             # dims-major constants of the bucketed linearization, and int32
@@ -657,7 +811,8 @@ def _make_problem(vertex_arrays, edge_arrays, *, vid_index, dtype, device,
                    marginalized, vid_index, type_bases, base, dtype, device,
                    uniform_kernel=uniform_kernel,
                    assembly_precision=assembly_precision,
-                   n_active_edges=n_active, bucket_specs=bucket_specs)
+                   n_active_edges=n_active, bucket_specs=bucket_specs,
+                   state_dtype=sdt)
 
 
 def _bucket_lm_slot(et, E, vertex_arrays):
@@ -744,6 +899,7 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
                   pad_edges_to_multiple: int = 1,
                   bucket_landmarks: bool = False,
                   static_kernels: bool = True,
+                  state_dtype=None,
                   assembly_precision: str = "highest",
                   registry=None) -> Problem:
     """Build a :class:`Problem` from raw numpy blocks keyed by type name:
@@ -762,7 +918,10 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
     implicit Schur solver: landmark types observed by one edge type are
     reordered into bucket order first (``vid_index``, ``estimates_by_vid``
     and ``fixed_flat`` follow the reorder; within-type vertex order is an
-    internal layout choice)."""
+    internal layout choice).
+
+    ``state_dtype`` (``dtype`` when None) is the dtype of the estimates and
+    of the linearization (mixed precision: module docstring)."""
     vertex_arrays, sorted_vids, vid_index = {}, {}, {}
     for t, (vids, est, fx, mg) in vertex_blocks.items():
         order = np.argsort(np.asarray(vids), kind="stable")
@@ -804,11 +963,13 @@ def build_problem(vertex_blocks, edge_blocks, *, dtype=None, device="cuda",
                          pad_edges_to_multiple=pad_edges_to_multiple,
                          assembly_precision=assembly_precision,
                          registry=registry, bucket_specs=specs, segps=segps,
-                         static_kernels=static_kernels)
+                         static_kernels=static_kernels,
+                         state_dtype=state_dtype)
 
 
 def problem_from_numpy(vertices, edges, *, dtype=None, device="cuda",
-                       vid_index=None, registry=None) -> Problem:
+                       vid_index=None, registry=None,
+                       state_dtype=None) -> Problem:
     """A :class:`Problem` from arrays that are already in compiled form —
     e.g. a JAX ``Problem``'s ``p.estimates[t]``, ``p.data.fixed[t]``,
     ``p.marginalized[t]`` and ``p.data.edges[name]`` turned to numpy — so
@@ -819,7 +980,8 @@ def problem_from_numpy(vertices, edges, *, dtype=None, device="cuda",
     name: {vidx, meas, info, kernel, delta, active, param}}`` with local
     vertex indices."""
     return _make_problem(vertices, edges, vid_index=vid_index or {},
-                         dtype=dtype, device=device, registry=registry)
+                         dtype=dtype, device=device, registry=registry,
+                         state_dtype=state_dtype)
 
 
 class _GraphTypes(NamedTuple):
@@ -833,6 +995,7 @@ def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
                   pad_edges_to_multiple: int = 1,
                   bucket_landmarks: bool = False,
                   static_kernels: bool = True,
+                  state_dtype=None,
                   assembly_precision: str = "highest") -> Problem:
     """Freeze a host :class:`~g2o_tpu_torch.core.graph.Graph` — the analogue
     of ``initializeOptimization`` + ``buildIndexMapping``
@@ -883,5 +1046,6 @@ def compile_graph(graph, *, dtype=None, device="cuda", level: int = 0,
                          pad_edges_to_multiple=pad_edges_to_multiple,
                          bucket_landmarks=bucket_landmarks,
                          static_kernels=static_kernels,
+                         state_dtype=state_dtype,
                          assembly_precision=assembly_precision,
                          registry=types)

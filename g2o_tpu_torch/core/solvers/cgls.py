@@ -30,13 +30,16 @@ gather (``onehot_gather_t``) and summed with the dims-major segment sum
 other batch gathers with ``index_select`` and sums with ``index_add_``.
 ``onehot_max_segments`` (the JAX package's TPU routing) is accepted and
 ignored; ``matvec_precision`` is validated and has no effect (TF32 is off
-package-wide).
+package-wide).  On sharded data (``ProblemData.group``) each ``‖J p‖²``
+and ``Jᵀ r`` over this process's edge rows is completed by one
+all-reduce; landmark-bucketed batches raise there.
 """
 
 from __future__ import annotations
 
 import torch
 
+from g2o_tpu_torch.core.problem import edge_sum_
 from g2o_tpu_torch.ops.onehot import onehot_gather_t, onehot_scatter_add_t
 from g2o_tpu_torch.ops.smallblocks import chol_small, inv_small
 
@@ -183,6 +186,7 @@ class CGLSSolver:
                     out[lt][:part.shape[0]] += part
                 else:
                     out[lt].index_add_(0, data.plans[name]["segp"], part)
+            edge_sum_(data, *out.values())
             return out
 
         def build_precond(data, lin, lam):
@@ -204,6 +208,11 @@ class CGLSSolver:
         tdot = p.tree_dot
 
         def solve(data, lin, lam, aux=()):
+            if data.group is not None and specs:
+                raise NotImplementedError(
+                    "CGLSSolver: landmark-bucketed batches on sharded data "
+                    "(ProblemData.group) are not supported yet "
+                    "(ROADMAP A.8.5)")
             Ls = whiten(lin)
             minv = build_precond(data, lin, lam)
             # s0 = Jᵀ sqrt(W)ᵀ (sqrt(W) e) with b's sign is exactly lin.b
@@ -225,7 +234,9 @@ class CGLSSolver:
             it = 0
             while it < max_iter and g > thresh:
                 q = Jmat(data, lin, Ls, pvec)
-                denom = dot_edges(q, q) + lam * tdot(pvec, pvec)
+                qq = dot_edges(q, q)
+                edge_sum_(data, qq)
+                denom = qq + lam * tdot(pvec, pvec)
                 alpha = gamma / torch.clamp_min(denom, 1e-300)
                 x = {t: x[t] + alpha * pvec[t] for t in x}
                 r = {k: r[k] - alpha * q[k] for k in r}

@@ -28,6 +28,13 @@ When the preconditioner is built (``precond_mode``):
   reads nothing from the device);
 * ``"frozen"`` — built by :meth:`PCGSolver.refresh_precond` from the
   problem's current linearization, then reused by every solve.
+
+On sharded data (``ProblemData.group``) the chunk index maps are built
+from this process's edge rows, the chunk blocks and the coarse matrix are
+completed by one all-reduce each before K1/K2 factor them, so every
+process factors the same matrix; ``H·v`` reduces inside
+:meth:`Problem.hvp_operator`, and the stop test reads replicated scalars,
+so every process stops at the same iteration.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from g2o_tpu_torch.core.problem import edge_sum_, replicated_part
 from g2o_tpu_torch.core.solvers.supernodal import (_chol_batched,
                                                    _solve_lower_batched)
 from g2o_tpu_torch.ops.smallblocks import inv_small
@@ -147,12 +155,14 @@ class PCGSolver:
         self._chunk = self._chunk_setup(problem)
         return self
 
-    def _chunk_setup(self, p):
-        """Index maps of the chunked preconditioners.  Vertices get GLOBAL
-        block ids (type base + local index), every block is padded to the
-        largest tangent dim ``d`` (padding slots carry a unit diagonal), and
-        chunks group consecutive global ids.  Only binary edges couple
-        blocks."""
+    def _chunk_setup(self, p, data=None):
+        """Index maps of the chunked preconditioners over the edge rows of
+        ``data`` (``p.data`` by default; this process's rows when it is
+        sharded).  Vertices get GLOBAL block ids (type base + local index),
+        every block is padded to the largest tangent dim ``d`` (padding
+        slots carry a unit diagonal), and chunks group consecutive global
+        ids.  Only binary edges couple blocks."""
+        data = p.data if data is None else data
         dev = p.device
         tnames = list(p.vertex_types)
         dims = {t: p.vertex_types[t].tangent_dim for t in tnames}
@@ -166,7 +176,8 @@ class PCGSolver:
         nc = -(-n // c)
         cfg = dict(tnames=tnames, dims=dims, base=base, d=d, n=n, c=c, nc=nc,
                    n_pad=nc * c, ncd=nc * d,
-                   ncd_pad=-(-(nc * d) // _PANEL) * _PANEL, maps={})
+                   ncd_pad=-(-(nc * d) // _PANEL) * _PANEL, maps={},
+                   group=data.group)
 
         def ten(x):
             return torch.as_tensor(x, dtype=torch.int64, device=dev)
@@ -174,7 +185,7 @@ class PCGSolver:
         for name, et in p.edge_types.items():
             if et.num_slots != 2:
                 continue
-            vidx = p.data.edges[name].vidx.cpu().numpy()
+            vidx = data.edges[name].vidx.cpu().numpy()
             ga = base[et.vertex_types[0].name] + vidx[:, 0]
             gb = base[et.vertex_types[1].name] + vidx[:, 1]
             if self.precond == "chunk":
@@ -197,7 +208,7 @@ class PCGSolver:
         cover = np.zeros((nc, d))
         gfm = np.zeros((n, d))
         for t in tnames:
-            live = ~p.data.fixed[t].cpu().numpy()
+            live = ~data.fixed[t].cpu().numpy()
             g = base[t] + np.arange(p.counts[t])
             if live.any():
                 cover[np.unique(g[live] // c), :dims[t]] = 1.0
@@ -215,6 +226,9 @@ class PCGSolver:
         """The preconditioner for ``H + λI`` (once per λ-trial)."""
         if self._chunk is None:
             return self._build_jacobi(data, lin, lam)
+        if data.group is not self._chunk["group"]:
+            # the maps index the edge rows the data holds
+            self._chunk = self._chunk_setup(self.problem, data)
         Hab = self._pair_blocks(lin)
         minv = self._build_chunk_blocks(data, lin, lam, Hab)
         if self.precond == "chunk2":
@@ -316,7 +330,7 @@ class PCGSolver:
             D = torch.cat([D, eye.expand(cfg["n_pad"] - cfg["n"], d, d)])
         M = torch.zeros((nc, c, c, d, d), dtype=D.dtype, device=D.device)
         ar = torch.arange(c, device=D.device)
-        M[:, ar, ar] = D.reshape(nc, c, d, d)
+        M[:, ar, ar] = replicated_part(data, D.reshape(nc, c, d, d))
         for name, m in cfg["maps"].items():
             H = Hab[name][m["sel"]]
             if self.precond == "chunk2":
@@ -330,6 +344,7 @@ class PCGSolver:
                              accumulate=True)
                 M.index_put_((m["ci"], m["li"] + 1, m["li"]),
                              O.transpose(1, 2), accumulate=True)
+        edge_sum_(data, M)
         Md = M.permute(0, 1, 3, 2, 4).reshape(nc, c * d, c * d)
         # explicit inverse once per λ-trial: each CG application is then a
         # single batched matvec
@@ -347,6 +362,7 @@ class PCGSolver:
         S = torch.zeros((nc, nc, d, d), dtype=Dm.dtype, device=Dm.device)
         for name, m in cfg["maps"].items():
             S.index_put_((m["ca"], m["cb"]), Hab[name], accumulate=True)
+        edge_sum_(data, S)
         Hc = S + S.transpose(0, 1).transpose(2, 3)
         di = torch.arange(nc, device=Dm.device)
         Hc[di, di] += (Dm.reshape(nc, c, d, d).sum(dim=1)

@@ -19,15 +19,27 @@
 Vertices marked ``marginalized`` are eliminated.  Marginalization must be
 homogeneous per vertex type; observation edges must be binary (pose type,
 landmark type); all landmark types share one tangent dim and all
-observation pose slots one dim.  Only the one-device path is ported:
-``mesh`` raises.
+observation pose slots one dim.
+
+Several processes (``mesh``, a ``torch.distributed`` device mesh, and/or
+sharded data, ``ProblemData.group``): the pair batch is padded to the
+mesh's size with masked pairs and each process takes one contiguous slice
+of it; every process gathers the B blocks of all observations (one
+all-reduce of a zeroed full buffer, since a pair may join observations held
+by two processes), sums its pairs per camera-block pair with K4, and one
+all-reduce completes the ``(n_uniq, dp²)`` sums.  The camera blocks of
+pose-pose edges on sharded data are completed the same way; the rest of the
+reduced system is replicated, so every process factors the same matrix.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from g2o_tpu_torch.core.problem import (all_reduce_sum_, edge_sum_,
+                                        full_rows, shard_rank)
 from g2o_tpu_torch.core.solvers.dense import cholesky_solve_or_nan
 from g2o_tpu_torch.ops.segment_kernels import segment_sum, segment_sum_plain
 from g2o_tpu_torch.ops.smallblocks import inv_small
@@ -58,12 +70,11 @@ class SchurSolver:
                  use_pallas: bool | None = None):
         """``use_pallas=True`` sums the pair products with the K4 kernel on
         a CUDA tensor (the JAX package's Pallas switch); otherwise with the
-        plain ``index_add_`` route."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "SchurSolver(mesh=...): the multi-device Schur path is not "
-                "ported yet (ROADMAP A.8)")
+        plain ``index_add_`` route.  ``mesh`` (a ``torch.distributed``
+        device mesh, ``g2o_tpu_torch.parallel.make_mesh``) splits the pair
+        batch over its processes (module docstring)."""
         self.use_cholesky = bool(use_cholesky)
+        self.mesh = mesh
         self.use_pallas = bool(use_pallas) if use_pallas is not None else False
         self._setup_for = None
 
@@ -129,10 +140,11 @@ class SchurSolver:
         dp = obs_pose_dims.pop() if obs_pose_dims else 0
 
         # concatenated observations: pose flat offset, landmark linear index
+        # (every observation, also where this process holds a row slice)
         obs_cam, obs_lm = [], []
         for name, ps, ls in obs_specs:
             et = p.edge_types[name]
-            vidx = p.data.edges[name].vidx.cpu().numpy()
+            vidx = full_rows(p.data, p.data.edges[name].vidx).cpu().numpy()
             obs_cam.append(pose_off[et.vertex_types[ps].name][vidx[:, ps]])
             obs_lm.append(lm_base[et.vertex_types[ls].name] + vidx[:, ls])
         obs_cam = np.concatenate(obs_cam) if obs_cam else np.zeros(0, np.int64)
@@ -151,6 +163,26 @@ class SchurSolver:
         pairs_a, pairs_b, pair_seg = pairs_a[srt], pairs_b[srt], pair_seg[srt]
         n_uniq = len(uniq)
         uniq_row, uniq_col = uniq >> 32, uniq & 0xFFFFFFFF
+        n_pairs = len(pairs_a)
+        pair_group, pair_valid = None, None
+        if self.mesh is not None:
+            # this process's slice of the pair batch, padded to the mesh's
+            # size with masked pairs (at the last id: the ids stay sorted)
+            from g2o_tpu_torch.parallel.sharded import mesh_group
+
+            pair_group = mesh_group(self.mesh)
+            rank = dist.get_rank(pair_group)
+            world = dist.get_world_size(pair_group)
+            per = -(-n_pairs // world)
+            n_pad = per * world - n_pairs
+            last = max(n_uniq - 1, 0)
+            pairs_a, pairs_b, pair_seg = (
+                np.concatenate([x, np.full(n_pad, fill, np.int64)])
+                [rank * per:(rank + 1) * per]
+                for x, fill in ((pairs_a, 0), (pairs_b, 0),
+                                (pair_seg, last)))
+            pair_valid = (np.arange(rank * per, (rank + 1) * per)
+                          < n_pairs).astype(np.float64)
 
         # landmark global tangent offsets; pose flat -> global offsets
         lm_goff = np.concatenate([p.data.offsets[t].cpu().numpy()
@@ -189,13 +221,17 @@ class SchurSolver:
             pose_fixed_flat=ten(pose_fixed_flat, dtype),
             lm_fixed=ten(lm_fixed, dtype),
         )
+        if pair_valid is not None:
+            self.aux["pair_valid"] = ten(pair_valid, dtype)
         eye_l = torch.eye(dl, dtype=dtype, device=dev)
 
         def build_B(data, lin):
-            """Per-observation Hessian off-diagonal blocks B = Jpᵀ W Jl."""
-            Bs = [torch.einsum("erd,ers,esf->edf", p.edge_jacs(lin, name)[ps],
-                               p.edge_weights(lin, name),
-                               p.edge_jacs(lin, name)[ls])
+            """Per-observation Hessian off-diagonal blocks B = Jpᵀ W Jl, of
+            every observation (gathered from the processes of sharded
+            data)."""
+            Bs = [full_rows(data, torch.einsum(
+                "erd,ers,esf->edf", p.edge_jacs(lin, name)[ps],
+                p.edge_weights(lin, name), p.edge_jacs(lin, name)[ls]))
                   for name, ps, ls in obs_specs]
             return torch.cat(Bs) if Bs else torch.zeros(
                 (0, dp, dl), dtype=dtype, device=dev)
@@ -208,11 +244,15 @@ class SchurSolver:
 
         def build_Hpp(data, lin, lam, aux):
             """The dense damped camera block ``Hpp + λI`` (unit diagonal on
-            fixed camera slots)."""
+            fixed camera slots).  On sharded data the pose-pose edges' blocks
+            are this process's rows, completed by one all-reduce (the
+            replicated diagonal blocks added on the first process only)."""
             H = torch.zeros(Tp * Tp, dtype=dtype, device=dev)
-            for t in pose_types:
-                H.index_add_(0, aux["pose_diag_flat"][t],
-                             lin.diag[t].reshape(-1))
+            reduce = data.group is not None and bool(pose_edge_types)
+            if not reduce or shard_rank(data)[0] == 0:
+                for t in pose_types:
+                    H.index_add_(0, aux["pose_diag_flat"][t],
+                                 lin.diag[t].reshape(-1))
             for name in pose_edge_types:
                 et = p.edge_types[name]
                 vidx = data.edges[name].vidx
@@ -230,21 +270,31 @@ class SchurSolver:
                                     + idxs[b][:, None, :])
                             H.index_add_(0, flat.reshape(-1),
                                          blk.reshape(-1))
+            if reduce:
+                edge_sum_(data, H)
             H = H.reshape(Tp, Tp)
             H.diagonal().add_(aux["pose_fixed_flat"] + lam)
             return H
 
         def pair_products(B, Dinv, aux):
-            """``M_p = (B_a Dinv) B_bᵀ`` for every pair, ``(P, dp·dp)``."""
+            """``M_p = (B_a Dinv) B_bᵀ`` for every pair of this process,
+            ``(P, dp·dp)`` (padding pairs zero)."""
             BD = torch.bmm(B, Dinv[aux["obs_lm"]])
             M = torch.bmm(BD[aux["pairs_a"]], B[aux["pairs_b"]].transpose(1, 2))
-            return M.reshape(-1, dp * dp)
+            M = M.reshape(-1, dp * dp)
+            if "pair_valid" in aux:
+                M = M * aux["pair_valid"][:, None]
+            return M
 
         def aggregate(M, aux):
-            """Sum the pair products per unique camera-block pair (K4)."""
+            """Sum the pair products per unique camera-block pair (K4), over
+            the pairs of every process of the mesh."""
             if self.use_pallas:
-                return segment_sum(M, aux["pair_seg"], n_uniq)
-            return segment_sum_plain(M, aux["pair_seg"], n_uniq)
+                Mu = segment_sum(M, aux["pair_seg"], n_uniq)
+            else:
+                Mu = segment_sum_plain(M, aux["pair_seg"], n_uniq)
+            all_reduce_sum_(pair_group, Mu)
+            return Mu
 
         def reduced_parts(data, lin, lam, aux):
             """(Hschur, bschur, B, Dinv) — the dense reduced camera system

@@ -54,6 +54,16 @@ matvec does.  ``deflate_basis`` (``{pose type: (N, d, k)}``, orthonormal,
 e.g. :func:`g2o_tpu_torch.types.bal.bal_gauge_basis`) runs CG on the
 orthogonal complement of the free-gauge null space (binary path only).
 
+Sharded data (``ProblemData.group``: each process holds a slice of the edge
+rows) runs on the ``rows`` layout, the general path and the dims-major
+layout of a problem built with ``bucket_landmarks=True``: every sum over
+edges into a per-vertex result — ``bschur``, the preconditioner's blocks,
+the landmark and camera sums of each ``S·v`` and the back-substitution's
+landmark sums — is this process's partial sum, completed by one
+all-reduce (a replicated term counted on the first process only); the CG
+vectors and its stop test stay replicated.  The runtime-bucketed and
+multi-observer layouts raise ``NotImplementedError`` on sharded data.
+
 The JAX package's ``lax.while_loop`` is a Python loop here: its stop test
 reads one scalar from the device per CG iteration.  ``matvec_precision`` is
 accepted for API parity: TF32 stays off, so every product is full
@@ -65,6 +75,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from g2o_tpu_torch.core.problem import (edge_sum_, full_rows,
+                                        replicated_part, row_window)
 from g2o_tpu_torch.ops.bucketed import bucket_by_segment
 from g2o_tpu_torch.ops.onehot import (onehot_gather, onehot_gather_t,
                                       onehot_scatter_add,
@@ -320,17 +332,35 @@ class ImplicitSchurSolver:
                 k += n
             return torch.cat(out, dim=0)
 
-        def bucket_down_t(spec, Bt, ut):
+        def win(data, name):
+            """``(lo, m)``: this process holds slab rows ``[lo, lo + m)``
+            of batch ``name`` (all of them unsharded)."""
+            nb = bspec[name][2]
+            if data.group is None:
+                return 0, nb
+            lo, n = row_window(data, name)
+            return lo, max(0, min(n, nb - lo))
+
+        def bucket_down_t(spec, Bt, ut, data, name):
             """Σ_rows Bᵀu, dims-major: Bt (dp, dl, E), ut (dp, E) ->
-            (dl, S_used) in bucket order."""
-            counts, degrees, _ = spec
+            (dl, S_used) in bucket order.  Sharded, this process's rows sit
+            in a zeroed slab buffer and one all-reduce completes the
+            sums."""
+            counts, degrees, nb = spec
             z = torch.sum(Bt * ut[:, None, :], dim=0)
+            if data.group is not None:
+                lo, m = win(data, name)
+                zf = z.new_zeros((z.shape[0], nb))
+                zf[:, lo:lo + m] = z
+                z = zf
             out, off = [], 0
             for n, d in zip(counts, degrees):
                 out.append(z[:, off:off + n * d].reshape(
                     z.shape[0], d, n).sum(dim=1))
                 off += n * d
-            return torch.cat(out, dim=1)
+            out = torch.cat(out, dim=1)
+            edge_sum_(data, out)
+            return out
 
         def bucket_broadcast_t(spec, x):
             """Per-segment ``(..., S_used)`` -> padded rows ``(..., E)``."""
@@ -343,14 +373,19 @@ class ImplicitSchurSolver:
                 off += n
             return torch.cat(parts, dim=-1)
 
-        def bucket_up_t(spec, Bt, st):
-            """B s per row, dims-major: st (dl, S_used) -> (dp, E)."""
-            return torch.sum(Bt * bucket_broadcast_t(spec, st)[None], dim=1)
+        def bucket_up_t(spec, Bt, st, lo=0, m=None):
+            """B s per row, dims-major: st (dl, S_used) -> (dp, E), at slab
+            rows ``[lo, lo + m)``."""
+            x = bucket_broadcast_t(spec, st)
+            if m is not None:
+                x = x[..., lo:lo + m]
+            return torch.sum(Bt * x[None], dim=1)
 
         def cam_of(data, name, ps):
-            """The camera ids (int32) of each slab row of batch ``name``."""
+            """The camera ids (int32) of each slab row of batch ``name``
+            held here."""
             if pre[name]:
-                return data.plans[name]["ids32"][ps, :bspec[name][2]]
+                return data.plans[name]["ids32"][ps, :win(data, name)[1]]
             return aux[name]["cam"]
 
         def segp_of(data, name):
@@ -399,7 +434,7 @@ class ImplicitSchurSolver:
                 if not dm[name]:
                     continue
                 d = p.vertex_types[lm_of[name]].tangent_dim
-                Bt_s[name] = ext[name]["Bt"][:, :, :bspec[name][2]]
+                Bt_s[name] = ext[name]["Bt"][:, :, :win(data, name)[1]]
                 bl_bt[name] = ext[name]["bl_bucket_t"]            # (d, S)
                 Hll_t = ext[name]["Hll_bucket_t"].reshape(d, d, -1)
                 eye_t = torch.eye(d, dtype=dtype, device=dev)[:, :, None]
@@ -455,13 +490,15 @@ class ImplicitSchurSolver:
             Dinv, bl = ctx["Dinv"], ctx["bl"]
             y = _apply_blocks(Dinv, bl, [t for t in lm_types
                                          if t not in dm_lm])
-            bschur = dict(ctx["bp"])
+            bschur = {t: replicated_part(data, v)
+                      for t, v in ctx["bp"].items()}
             for name, ps, ls in obs_specs:
                 pt, lt = pt_of[name], lm_of[name]
                 if dm[name]:
                     y_bt = torch.einsum("ijn,jn->in", ctx["Dinv_t"][name],
                                         ctx["bl_bt"][name])
-                    rows_t = bucket_up_t(bspec[name], ctx["Bt_s"][name], y_bt)
+                    rows_t = bucket_up_t(bspec[name], ctx["Bt_s"][name], y_bt,
+                                         *win(data, name))
                     bschur[pt] = bschur[pt] - onehot_scatter_add_t(
                         cam_of(data, name, ps), rows_t, p.counts[pt])
                 elif bucketed:
@@ -475,6 +512,7 @@ class ImplicitSchurSolver:
                         0, vidx[:, ps], torch.einsum(
                             "edl,el->ed", ctx["B"][name], y[lt][vidx[:, ls]]),
                         alpha=-1)
+            edge_sum_(data, *bschur.values())
             return bschur
 
         def preconditioner(ctx, data, lin, lam, aux):
@@ -485,14 +523,17 @@ class ImplicitSchurSolver:
             diag_blocks = _damped_diag(p, data, lin, lam, pose_types)
             sdiag = dict(diag_blocks)
             if use_schur_precond:
+                sdiag = {t: replicated_part(data, v)
+                         for t, v in diag_blocks.items()}
                 for name, ps, ls in obs_specs:
                     pt, lt = pt_of[name], lm_of[name]
                     if dm[name]:
                         # C = B Dinv Bᵀ per row, dims-major
                         Bts = ctx["Bt_s"][name]
                         dp_ = Bts.shape[0]
-                        Drows = bucket_broadcast_t(bspec[name],
-                                                   ctx["Dinv_t"][name])
+                        lo, m = win(data, name)
+                        Drows = bucket_broadcast_t(
+                            bspec[name], ctx["Dinv_t"][name])[..., lo:lo + m]
                         T_ = torch.sum(Bts[:, :, None, :] * Drows[None],
                                        dim=1)
                         C_t = torch.sum(T_[:, None, :, :] * Bts[None], dim=2)
@@ -520,11 +561,21 @@ class ImplicitSchurSolver:
                                          ctx["Dinv"][lt][vidx[:, ls]], Bn)
                         sdiag[pt] = sdiag[pt].index_add(0, vidx[:, ps], C,
                                                         alpha=-1)
+                edge_sum_(data, *sdiag.values())
             return diag_blocks, {t: inv_small(sdiag[t]) for t in pose_types}
 
         def S_vec(ctx, data, lin, diag_blocks, vb):
-            """The reduced-system product ``S·v`` in block layout."""
-            out = _apply_blocks(diag_blocks, vb, pose_types)
+            """The reduced-system product ``S·v`` in block layout (completed
+            over the processes of sharded data)."""
+            out = S_vec_part(ctx, data, lin, diag_blocks, vb)
+            edge_sum_(data, *out.values())
+            return out
+
+        def S_vec_part(ctx, data, lin, diag_blocks, vb):
+            """This process's share of ``S·v``: the replicated diagonal term
+            on the first process only, the edge terms of its rows."""
+            out = {t: replicated_part(data, v) for t, v in _apply_blocks(
+                diag_blocks, vb, pose_types).items()}
             # pose-pose edges: the off-diagonal Hpp couplings
             for name in pose_edge_types:
                 Js = p.edge_jacs(lin, name)
@@ -543,16 +594,17 @@ class ImplicitSchurSolver:
                     if dm[name]:
                         Bts = ctx["Bt_s"][name]
                         u_t = onehot_gather_t(ids, vb[pt])
-                        t_ = bucket_down_t(bspec[name], Bts, u_t)
+                        t_ = bucket_down_t(bspec[name], Bts, u_t, data, name)
                         s_t = torch.sum(ctx["Dinv_t"][name] * t_[None],
                                         dim=1)
-                        rows_t = bucket_up_t(bspec[name], Bts, s_t)
+                        rows_t = bucket_up_t(bspec[name], Bts, s_t,
+                                             *win(data, name))
                         out[pt] = out[pt] - onehot_scatter_add_t(
                             ids, rows_t, p.counts[pt])
                         continue
                     Bpt = ctx["Bpt"][name]
                     u = onehot_gather(ids, vb[pt])
-                    t_ = bucket_down_t(bspec[name], Bpt, u.T)
+                    t_ = bucket_down_t(bspec[name], Bpt, u.T, data, name)
                     s_t = torch.sum(ctx["DinvT_perm"][name] * t_[None], dim=1)
                     rows_t = bucket_up_t(bspec[name], Bpt, s_t)
                     out[pt] = out[pt] - onehot_scatter_add(
@@ -573,6 +625,7 @@ class ImplicitSchurSolver:
                     vidx = data.edges[name].vidx
                     tl[lt].index_add_(0, vidx[:, ls], torch.einsum(
                         "edl,ed->el", ctx["B"][name], vb[pt][vidx[:, ps]]))
+            edge_sum_(data, *tl.values())
             s_ = _apply_blocks(ctx["Dinv"], tl, rem_lm)
             for name, ps, ls in rem:
                 pt, lt = pt_of[name], lm_of[name]
@@ -617,7 +670,8 @@ class ImplicitSchurSolver:
                 pt, lt = pt_of[name], lm_of[name]
                 if dm[name]:
                     u_t = onehot_gather_t(cam_of(data, name, ps), dxp[pt])
-                    t_ = bucket_down_t(bspec[name], ctx["Bt_s"][name], u_t)
+                    t_ = bucket_down_t(bspec[name], ctx["Bt_s"][name], u_t,
+                                       data, name)
                     dxl_t = torch.einsum("ijn,jn->in", ctx["Dinv_t"][name],
                                          ctx["bl_bt"][name] - t_)
                     d = p.vertex_types[lt].tangent_dim
@@ -631,6 +685,7 @@ class ImplicitSchurSolver:
                     vidx = data.edges[name].vidx
                     wl[lt] = wl[lt].index_add(0, vidx[:, ls], torch.einsum(
                         "edl,ed->el", ctx["B"][name], dxp[pt][vidx[:, ps]]))
+            edge_sum_(data, *wl.values())
             for t in lm_types:
                 if t not in dm_lm:
                     dxl[t] = torch.einsum("nij,nj->ni", ctx["Dinv"][t],
@@ -692,7 +747,10 @@ class ImplicitSchurSolver:
         lt_of = {}
         for name, pslots, ls in obs_specs:
             lt = lt_of[name] = p.edge_types[name].vertex_types[ls].name
-            vl = p.data.edges[name].vidx[:, ls].cpu().numpy()
+            # every edge row's mask (gathered when this process holds a
+            # slice); a solve reads its rows' part (``elim``)
+            vl = full_rows(p.data, p.data.edges[name].vidx[:, ls]).cpu() \
+                .numpy()
             elim = marg_np[lt][np.minimum(vl, len(marg_np[lt]) - 1)]
             aux["elim"][name] = torch.as_tensor(elim.astype(np.float64),
                                                 dtype=dtype, device=dev)
@@ -703,6 +761,11 @@ class ImplicitSchurSolver:
         def slot_types(name, slots):
             et = p.edge_types[name]
             return [(s, et.vertex_types[s].name) for s in slots]
+
+        def elim(data, aux, name):
+            """The eliminated-landmark mask of the rows ``data`` holds."""
+            lo, n = row_window(data, name)
+            return aux["elim"][name][lo:lo + n]
 
         def landmark_system(data, lin, lam, aux):
             """``ctx``: the eliminated-block inverses (damped diagonal on
@@ -734,16 +797,18 @@ class ImplicitSchurSolver:
             minus ``Σ_s B_s Dinv bl`` over eliminated landmarks."""
             ball = ctx["ball"]
             y = _apply_blocks(ctx["Dinv"], ctx["bl"], lm_types)
-            bschur = {t: (ball[t] * (1.0 - aux["marg"][t][:, None])
-                          if t in lm_types else ball[t]) for t in cg_types}
+            bschur = {t: replicated_part(
+                data, ball[t] * (1.0 - aux["marg"][t][:, None])
+                if t in lm_types else ball[t]) for t in cg_types}
             for name, pslots, ls in obs_specs:
                 vidx = data.edges[name].vidx
-                el = aux["elim"][name][:, None]
+                el = elim(data, aux, name)[:, None]
                 yl = y[lt_of[name]][vidx[:, ls]]
                 for s, ts in slot_types(name, pslots):
                     bschur[ts] = bschur[ts].index_add(
                         0, vidx[:, s], el * torch.einsum(
                             "edl,el->ed", ctx["B"][name][s], yl), alpha=-1)
+            edge_sum_(data, *bschur.values())
             return bschur
 
         def preconditioner(ctx, data, lin, lam, aux):
@@ -758,15 +823,18 @@ class ImplicitSchurSolver:
                                       + eyes[t] * mu)
             sdiag = dict(diag_blocks)
             if use_schur_precond:
+                sdiag = {t: replicated_part(data, v)
+                         for t, v in diag_blocks.items()}
                 for name, pslots, ls in obs_specs:
                     vidx = data.edges[name].vidx
-                    el = aux["elim"][name][:, None, None]
+                    el = elim(data, aux, name)[:, None, None]
                     Dl = ctx["Dinv"][lt_of[name]][vidx[:, ls]]
                     for s, ts in slot_types(name, pslots):
                         Bs = ctx["B"][name][s]
                         C = torch.einsum("edl,elm,efm->edf", Bs, Dl, Bs)
                         sdiag[ts] = sdiag[ts].index_add(0, vidx[:, s], el * C,
                                                         alpha=-1)
+                edge_sum_(data, *sdiag.values())
             return diag_blocks, {t: inv_small(sdiag[t]) for t in cg_types}
 
         def schur_rows(ctx, data, vb):
@@ -783,12 +851,16 @@ class ImplicitSchurSolver:
                     acc = h if acc is None else acc + h
                 if acc is not None:          # unary landmark priors: none
                     tl[lt_of[name]] = tl[lt_of[name]].index_add(
-                        0, vidx[:, ls], aux["elim"][name][:, None] * acc)
+                        0, vidx[:, ls], elim(data, aux, name)[:, None] * acc)
+            edge_sum_(data, *tl.values())
             return tl
 
         def S_vec(ctx, data, lin, diag_blocks, vb):
-            """``S·v`` over the retained system."""
-            out = _apply_blocks(diag_blocks, vb, cg_types)
+            """``S·v`` over the retained system (completed over the
+            processes of sharded data: the diagonal term on the first
+            process only, the edge terms of each process's rows)."""
+            out = {t: replicated_part(data, v) for t, v in _apply_blocks(
+                diag_blocks, vb, cg_types).items()}
             for name in pose_edge_types:
                 Js = p.edge_jacs(lin, name)
                 out = _pair_couplings(out, p.edge_types[name],
@@ -805,7 +877,7 @@ class ImplicitSchurSolver:
                                       p.edge_weights(lin, name), pslots, vb)
                 # (b) a retained landmark's couplings (non-eliminated rows)
                 if lt in cg_types:
-                    keep = 1.0 - aux["elim"][name][:, None]
+                    keep = 1.0 - elim(data, aux, name)[:, None]
                     vl = vb[lt][vidx[:, ls]]
                     accl = None
                     for s, ts in slot_types(name, pslots):
@@ -823,12 +895,13 @@ class ImplicitSchurSolver:
                                lm_types)
             for name, pslots, ls in obs_specs:
                 vidx = data.edges[name].vidx
-                el = aux["elim"][name][:, None]
+                el = elim(data, aux, name)[:, None]
                 sl = s_[lt_of[name]][vidx[:, ls]]
                 for s, ts in slot_types(name, pslots):
                     out[ts] = out[ts].index_add(0, vidx[:, s], el * (
                         torch.einsum("edl,el->ed", ctx["B"][name][s], sl)),
                         alpha=-1)
+            edge_sum_(data, *out.values())
             return out
 
         def cg(ctx, data, lin, bschur, diag_blocks, minv, aux, carry=None):
@@ -866,6 +939,13 @@ class ImplicitSchurSolver:
             """One solve: ``(dx, stats)`` with the CG iteration count and
             the final residual (the reference's iterationsLinearSolver
             statistic, ``g2o/core/batch_stats.h:59``)."""
+            if data.group is not None and layout["form"] not in (
+                    "rows", "dm", "general"):
+                raise NotImplementedError(
+                    f"ImplicitSchurSolver: the {layout['form']!r} layout "
+                    "on sharded data (ROADMAP A.8.5); the 'rows' and "
+                    "general layouts and bucket_landmarks=True problems "
+                    "run sharded")
             ctx = parts["landmark_system"](data, lin, lam, aux)
             bschur = parts["reduced_rhs"](ctx, data, lin, aux)
             diag_blocks, minv = parts["preconditioner"](ctx, data, lin, lam,

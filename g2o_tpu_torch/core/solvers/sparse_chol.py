@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from g2o_tpu_torch.core.problem import edge_sum_, full_rows, row_window
 from g2o_tpu_torch.ops.smallblocks import cholesky_or_nan
 
 
@@ -509,8 +510,11 @@ class SparseCholeskySolver:
             base[t] = acc
             acc += p.counts[t]
         n = acc
-        vidx_np = {name: p.data.edges[name].vidx.cpu().numpy()
-                   for name in p.edge_types}
+        # every edge row (gathered when this process holds a slice): a solve
+        # on sharded data reads its rows' part of each map and completes
+        # the assembled blocks with one all-reduce
+        vidx_np = {name: full_rows(p.data, p.data.edges[name].vidx)
+                   .cpu().numpy() for name in p.edge_types}
 
         # block pattern: ALL vertex pairs of every edge — n-ary edges
         # contribute each slot pair, as the reference builds its pattern
@@ -601,37 +605,44 @@ class SparseCholeskySolver:
             for name, et in p.edge_types.items():
                 Js = p.edge_jacs(lin, name)
                 W = p.edge_weights(lin, name)
+                lo, nr = row_window(data, name)
                 for s in range(et.num_slots):
                     Hss = torch.einsum("erd,ers,esf->edf", Js[s], W, Js[s])
-                    diag.index_add_(0, aux["diag_ids"][(name, s)],
+                    diag.index_add_(0, aux["diag_ids"][(name, s)][lo:lo + nr],
                                     _pad_block(Hss))
             # same-vertex slot pairs: H_ab + H_abᵀ into the diagonal block
             for (name, a, b), sids in aux["self_maps"].items():
                 Js = p.edge_jacs(lin, name)
                 W = p.edge_weights(lin, name)
+                lo, nr = row_window(data, name)
                 Hab = _pad_block(torch.einsum("erd,ers,esf->edf", Js[a], W,
                                               Js[b]))
-                diag.index_add_(0, sids, Hab + Hab.mT)
+                diag.index_add_(0, sids[lo:lo + nr], Hab + Hab.mT)
+            # off-diagonal H blocks (every slot pair of every edge); the
+            # diagonal slots are written below (an invalid pair adds zero
+            # into slot 0 only)
+            blocks = torch.zeros((n_total, d, d), dtype=dtype, device=dev)
+            for name, et in p.edge_types.items():
+                if not slot_pairs[name]:
+                    continue
+                Js = p.edge_jacs(lin, name)
+                W = p.edge_weights(lin, name)
+                lo, nr = row_window(data, name)
+                for a, b in slot_pairs[name]:
+                    Hab = _pad_block(torch.einsum("erd,ers,esf->edf", Js[a],
+                                                  W, Js[b]))
+                    slots, transpose, valid = (
+                        m[lo:lo + nr] for m in aux["edge_maps"][(name, a, b)])
+                    Hab = torch.where(transpose[:, None, None], Hab.mT, Hab)
+                    blocks.index_add_(0, slots, Hab * valid[:, None, None])
+            edge_sum_(data, diag, blocks)
             # damping on valid slots, unit diagonal on padding slots,
             # identity on fixed vertices
             vmask = aux["gvalid"]                       # (n, d)
             diag = diag[:n] + torch.diag_embed(vmask * lam + (1.0 - vmask))
             fx = aux["gfixed"][:, None, None]
             diag = diag * (1.0 - fx) + eye * fx
-            blocks = torch.zeros((n_total, d, d), dtype=dtype, device=dev)
             blocks[:n] = diag[aux["perm"]]
-            # off-diagonal H blocks (every slot pair of every edge)
-            for name, et in p.edge_types.items():
-                if not slot_pairs[name]:
-                    continue
-                Js = p.edge_jacs(lin, name)
-                W = p.edge_weights(lin, name)
-                for a, b in slot_pairs[name]:
-                    Hab = _pad_block(torch.einsum("erd,ers,esf->edf", Js[a],
-                                                  W, Js[b]))
-                    slots, transpose, valid = aux["edge_maps"][(name, a, b)]
-                    Hab = torch.where(transpose[:, None, None], Hab.mT, Hab)
-                    blocks.index_add_(0, slots, Hab * valid[:, None, None])
             return factorize(blocks, aux["levels"])
 
         def to_full(blocks):

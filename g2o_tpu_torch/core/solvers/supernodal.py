@@ -42,6 +42,7 @@ import functools
 import numpy as np
 import torch
 
+from g2o_tpu_torch.core.problem import edge_sum_, full_rows, row_window
 from g2o_tpu_torch.core.solvers.sparse_chol import symbolic_factorization
 from g2o_tpu_torch.ops import chol_kernels
 
@@ -574,8 +575,12 @@ class SupernodalCholeskySolver:
             base[t] = acc
             acc += p.counts[t]
         n = acc
-        vidx_np = {name: p.data.edges[name].vidx.cpu().numpy()
-                   for name in p.edge_types}
+        # every edge row (gathered when this process holds a slice): the
+        # pattern and the assembly maps are the whole graph's; a solve on
+        # sharded data reads its rows' part of each map and completes the
+        # assembled blocks with one all-reduce
+        vidx_np = {name: full_rows(p.data, p.data.edges[name].vidx)
+                   .cpu().numpy() for name in p.edge_types}
 
         # block pattern: ALL vertex pairs of every edge (n-ary included) on
         # global block ids across types — mixed types ride the uniform
@@ -672,21 +677,23 @@ class SupernodalCholeskySolver:
             for name, et in p.edge_types.items():
                 Js = p.edge_jacs(lin, name)
                 W = p.edge_weights(lin, name)
+                lo, nr = row_window(data, name)
                 for s in range(et.num_slots):
                     Hss = torch.einsum("erd,ers,esf->edf", Js[s], W, Js[s])
-                    ACC.index_add_(0, aux["asm_diag"][(name, s)],
+                    ACC.index_add_(0, aux["asm_diag"][(name, s)][lo:lo + nr],
                                    _pad_block(Hss))
                 for a, b in slot_pairs[name]:
                     Hab = _pad_block(torch.einsum("erd,ers,esf->edf", Js[a],
                                                   W, Js[b]))
                     slots, transpose = aux["asm_off"][(name, a, b)]
                     HabT = Hab.mT
-                    ACC.index_add_(0, slots, torch.where(
-                        transpose[:, None, None], HabT, Hab))
+                    ACC.index_add_(0, slots[lo:lo + nr], torch.where(
+                        transpose[lo:lo + nr, None, None], HabT, Hab))
                     sids = aux["asm_self"].get((name, a, b))
                     if sids is not None:
                         # same-vertex slot pair -> diagonal frontal slot
-                        ACC.index_add_(0, sids, Hab + HabT)
+                        ACC.index_add_(0, sids[lo:lo + nr], Hab + HabT)
+            edge_sum_(data, ACC)
             return factorize_frontal(ACC, aux, static, d, lam,
                                      aux["gfixed"], aux["gvalid"])
 

@@ -10,14 +10,16 @@ over the observation rows, the ``(H_jj + λ_j I)⁻¹ b_j`` solves are one
 batched ``torch.linalg.solve`` on ``(N, d, d)``, and each landmark carries
 its own ``(λ_j, ν_j)`` trust-region state with per-landmark accept masks.
 A Python loop over ``n_iters`` takes the place of the JAX package's
-``lax.fori_loop``; it reads nothing from the device.
+``lax.fori_loop``; it reads nothing from the device.  On sharded data
+(``ProblemData.group``) the per-landmark sums over this process's
+observation rows are completed by one all-reduce per evaluation.
 """
 
 from __future__ import annotations
 
 import torch
 
-from g2o_tpu_torch.core.problem import residuals_and_jacobians
+from g2o_tpu_torch.core.problem import edge_sum_, residuals_and_jacobians
 
 
 def structure_only_refine(problem, n_iters: int = 10, *,
@@ -64,6 +66,7 @@ def structure_only_refine(problem, n_iters: int = 10, *,
                              torch.einsum("erd,ers,esf->edf", Jl, W, Jl))
                 b.index_add_(0, idx,
                              -torch.einsum("erd,ers,es->ed", Jl, W, e))
+        edge_sum_(p.data, *((H, b, chi) if need_hb else (chi,)))
         return H, b, chi
 
     results = {}

@@ -8,7 +8,10 @@ same paths on the CPU; the edge types of the remaining type libraries and
 the 2D/3D simulators' scenes, the linear 2D initialization, the
 structure-only refinement, incremental mode, the CLI, the fast loader, the
 hierarchical and interactive apps, the FLOP model's share of the card's
-peak and every example on the card against the CPU.
+peak and every example on the card against the CPU; two Gloo ranks on
+``cuda:0`` (chunk2 PCG and ``SchurSolver(mesh=, use_pallas=True)``)
+against one process on the card, and the mixed-precision Gauss-Newton run
+on the card against the CPU.
 
 Every test is marked ``cuda`` and skips itself when torch sees no card.
 This file imports neither JAX nor ``g2o_tpu``, so it also runs on a machine
@@ -1319,3 +1322,83 @@ def test_example_on_card_matches_cpu(tmp_path, name):
         np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-9)
     else:
         assert out["cuda"][0] == out["cpu"][0]
+
+
+@pytest.fixture(scope="module")
+def sharded_on_card(tmp_path_factory):
+    """The two-process Gloo worker's small cases with every rank's tensors
+    on ``cuda:0`` (``--case tests --device cuda``)."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    _need_card()
+    out = str(tmp_path_factory.mktemp("parallel_card") / "tests.json")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "g2o_tpu_torch.parallel.worker",
+         "--init-method", f"tcp://127.0.0.1:{port}", "--nproc", "2",
+         "--pid", str(r), "--device", "cuda", "--backend", "gloo",
+         "--case", "tests", "--out", out],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        logs = [pr.communicate(timeout=600)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+    for pr, log in zip(procs, logs):
+        assert pr.returncode == 0, log[-4000:]
+    with open(out) as fh:
+        return json.load(fh)["tests"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chunk2_solve", "schur_step"])
+def test_sharded_solve_on_card_matches_one_process(sharded_on_card, case):
+    """Two Gloo ranks on ``cuda:0`` against one process on the card, float64:
+    chunk2 PCG (K1/K2 on the coarse level) and ``SchurSolver(mesh=,
+    use_pallas=True)`` (K4 over each rank's pairs), ``atol=1e-9``."""
+    from g2o_tpu_torch.sim.generators import create_ba_scene
+
+    if case == "chunk2_solve":
+        p = create_manhattan(n_poses=120, seed=3).compile(
+            dtype=torch.float64, device="cuda")
+        s = g2o_tpu_torch.PCGSolver(max_iter=25, tol=1e-10,
+                                    precond="chunk2", chunk_size=8)
+    else:
+        p = create_ba_scene(n_cameras=10, n_points=150, pixel_noise=0.5,
+                            point_noise=0.3, seed=21)[0].compile(
+            dtype=torch.float64, device="cuda")
+        s = g2o_tpu_torch.SchurSolver(use_pallas=True)
+    dx = s.setup(p).solve(p.data, p.linearize_fn(p.data, p.estimates), 1e-3)
+    np.testing.assert_allclose(np.asarray(sharded_on_card[case]["dx"]),
+                               dx.cpu().numpy(), atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_mixed_gn_on_card_matches_cpu():
+    """``compile(dtype=float32, state_dtype=float64)`` on the card: 8
+    Gauss-Newton iterations with the dense solver on
+    ``create_manhattan(250, seed=5)`` reach the CPU run's chi2 (rtol
+    1e-6) and the float64 fixed point (1e-4, the JAX package's bar)."""
+    _need_card()
+    g = create_manhattan(n_poses=250, seed=5)
+    chi = {}
+    for device in ("cuda", "cpu"):
+        p = g.compile(dtype=torch.float32, state_dtype=torch.float64,
+                      device=device)
+        chi[device] = g2o_tpu_torch.optimize_fused_gn(
+            p, g2o_tpu_torch.DenseSolver(), 8)["chi2_final"]
+    c64 = g2o_tpu_torch.optimize_fused_gn(
+        g.compile(dtype=torch.float64, device="cpu"),
+        g2o_tpu_torch.DenseSolver(), 8)["chi2_final"]
+    assert chi["cuda"] == pytest.approx(chi["cpu"], rel=1e-6)
+    assert abs(chi["cuda"] - c64) <= 1e-4 * max(c64, 1.0)

@@ -199,11 +199,6 @@ def test_partial_marginalization_raises(text):
         g2o_tpu_torch.SchurSolver().setup(p)
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        g2o_tpu_torch.SchurSolver(mesh=object())
-
-
 def test_entry_points_default_to_the_card(text):
     """Without ``device`` the problem is built on the CUDA card; with no
     card that raises instead of moving to the CPU quietly."""

@@ -229,7 +229,10 @@ def test_port_imports_neither_jax_nor_g2o_tpu():
             "g2o_tpu_torch.utils.flops, g2o_tpu_torch.apps.anonymize, "
             "g2o_tpu_torch.apps.convert_segment_line, "
             "g2o_tpu_torch.apps.hierarchical, "
-            "g2o_tpu_torch.apps.interactive, "
+            "g2o_tpu_torch.apps.interactive, g2o_tpu_torch.parallel, "
+            "g2o_tpu_torch.parallel.sharded, "
+            "g2o_tpu_torch.parallel.multihost, "
+            "g2o_tpu_torch.parallel.worker, "
             + ", ".join(f"g2o_tpu_torch.examples.{m}" for m in EXAMPLES)
             + ", chip_smoke")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
