@@ -54,7 +54,7 @@ exits non-zero without printing a result:
    take the dims-major gather's one-thread-per-edge branch), and the
    implicit Schur paths' shapes with their solvers' own ids (the
    slab-ordered camera ids of the dims-major Venice, ladybug and stress
-   paths; the runtime-bucketed ladybug ids with their sentinel); the
+   paths; the runtime-bucketed ladybug ids of its real rows); the
    gathers must give the plain version's bits, the sums agree within the
    tolerance; timed beside the plain version and one
    ``index_select``/``index_add`` at those path shapes, with the device µs
@@ -234,7 +234,22 @@ exits non-zero without printing a result:
     ``[sharded_implicit_ladybug]``: ladybug with ``bucket_landmarks=True``,
     ``ImplicitSchurSolver`` in its dims-major layout, one f64 step against
     one process (estimates within 1e-8 relative, K5/K6 launched), and K5
-    and K6 held and timed at one rank's slab rows; ``[mixed_manhattan]``:
+    and K6 held and timed at one rank's slab rows; the landmark-bucketed
+    layouts, each at two Gloo ranks and one NCCL rank with ms per λ-trial
+    against one process, all-reduce calls per trial and host ms and KB per
+    call, and its kernels launched on every rank — ``[sharded_runtime_
+    ladybug]`` (ladybug built without ``bucket_landmarks``,
+    ``ImplicitSchurSolver(layout="bucketed")``, the runtime-bucketed form:
+    one f64 step against one process, estimates within 1e-8 relative and
+    the stepped chi2 within 1e-10, 10 f32 LM iterations to chi2 <=
+    49278.23, K7/K8), ``[sharded_cgls_ladybug]`` (ladybug with
+    ``bucket_landmarks=True``, ``CGLSSolver``: one f64 solve, dx within
+    1e-8 relative, 10 f32 LM iterations to <= 49278.23, K5/K6) and
+    ``[sharded_mixed_sba]`` (phase 10's mixed mono/stereo map with
+    ``bucket_landmarks=True``, the multi-observer form: the f64 step as
+    above, 15 f32 LM iterations within phase 10's bar, 1% above its f64
+    run's 522307.59, K7/K8) — then K7/K8 and
+    K5/K6 held and timed at the ids rank 0 handed them; ``[mixed_manhattan]``:
     ``create_manhattan(3500, seed=0)`` compiled mixed (``dtype=float32,
     state_dtype=float64``), f64 and f32, 8 Gauss-Newton iterations over
     ``SupernodalCholeskySolver`` from the original estimates each, the
@@ -557,6 +572,22 @@ SHARDED_IMPLICIT_RTOL = 1e-8
 SHARDED_SCHUR_BOUND = 49278.23
 SHARDED_ITERS = 10
 SHARDED_MANHATTAN_POSES = 3500
+# the landmark-bucketed layouts on sharded data: the float64 step's (or,
+# CGLS, the solve's) bar against one process's, relative; the float32 LM
+# runs' chi2 bounds — ladybug: SHARDED_SCHUR_BOUND; the mixed sba map:
+# phase 10's bar, its f64 run's chi2 after SBA_ITERS iterations +1% (the
+# f64 run reached 522307.59 and the f32 run 522307.56 on an NVIDIA H100
+# 80GB HBM3, 700 W, so the converged value itself is no bar: f32 rounding
+# moves it by 0.03); the mixed map's LM iterations, phase 10's SBA_ITERS
+# (five left it at 1285623 there)
+SHARDED_STEP_RTOL = 1e-8
+SHARDED_STEP_CHI2_RTOL = 1e-10
+SHARDED_MIXED_BOUND = 522307.59 * 1.01
+SHARDED_SBA_ITERS = 15
+# the worker cases of the two spawns
+GLOO_CASES = "sphere,manhattan,schur,implicit,runtime,cgls,mixed_sba"
+NCCL_CASES = "sphere,runtime,cgls,mixed_sba"
+BUCKETED_RUNS = ("runtime", "cgls", "mixed_sba")
 MIXED_ITERS = 8
 MIXED_MAX_ITERS = 48
 MIXED_RTOL = 1e-4
@@ -1474,9 +1505,8 @@ def _path_ids(implicit, sba):
     the gather and segment-sum kernels and the row widths they gather and
     sum (the camera's tangent dim and its square) — the slab-ordered ids of
     the three dims-major paths (Venice, ladybug, stress), the
-    runtime-bucketed ladybug ids, whose padded slots carry the sentinel
-    ``S``, and the slab-ordered ids of the mixed sba path's stereo and mono
-    batches."""
+    runtime-bucketed ladybug ids (its real rows in slab order), and the
+    slab-ordered ids of the mixed sba path's stereo and mono batches."""
     name, cam = "EDGE_OBSERVATION_BAL", "VERTEX_CAMERA_BAL"
     out = {}
     for kind, suffix in (("venice", "_venice"), ("ladybug_dm", ""),
@@ -1486,7 +1516,8 @@ def _path_ids(implicit, sba):
         out[kind] = (p.data.plans[name]["ids32"][0, :nb], p.counts[cam],
                      (9, 81))
     p, solver, _ = implicit["_runtime"]
-    out["ladybug_runtime"] = (solver.aux[name]["cam"], p.counts[cam], (9, 81))
+    out["ladybug_runtime"] = (solver._rows_here(p.data, name)[2],
+                              p.counts[cam], (9, 81))
     p = sba["mixed"]["p32"]
     for kind, name in zip(("mixed_stereo", "mixed_mono"), SBA_EDGES):
         sp = p.bucket_specs[name]
@@ -1583,7 +1614,7 @@ def onehot_kernel_phase(torch, oh, implicit, sba):
             timed = fns if not kind.startswith("mixed") else (
                 RUNTIME_ONE_OP if D == 6 else ("onehot_scatter_add",))
             # the library call: index_select / index_add over S+1 rows, the
-            # last a zero row (takes the runtime path's sentinel id S)
+            # last a zero row (an out-of-range id S reads zero)
             tz = torch.cat([table, table.new_zeros((1, D))])
             tzt = tz.T.contiguous()
             Z, Zt = tz.new_zeros((S + 1, D)), tz.new_zeros((D, S + 1))
@@ -1764,6 +1795,7 @@ def sba_graphs(scene=None):
 
     from g2o_tpu_torch.core.graph import Graph
     from g2o_tpu_torch.ops import lie
+    from g2o_tpu_torch.parallel.worker import mixed_sba_graph
     from g2o_tpu_torch.sim.generators import create_ba_scene
     from g2o_tpu_torch.types import sba
 
@@ -1774,7 +1806,6 @@ def sba_graphs(scene=None):
     vids = np.array([e.vids for e in base.edges()])       # (point, camera)
     meas = np.stack([e.measurement for e in base.edges()])
     cam_par = base.parameter(sba.CAM_PARAM_ID)
-    f, cx, cy = cam_par[:3]
 
     def with_cameras(params):
         g = Graph()
@@ -1801,18 +1832,8 @@ def sba_graphs(scene=None):
         g_id.add_edge(sba.EdgeProjectPSI2UV, [v, i, anchor_of[v]], m,
                       np.eye(2), param_id=sba.CAM_PARAM_ID)
 
-    g_mx = with_cameras({1: [f, f, cx, cy], 2: [f, f, cx, cy, SBA_BF]})
-    for v in pts:
-        g_mx.add_vertex(v, sba.VertexPointXYZ, verts[v].estimate,
-                        marginalized=True)
-    for (v, i), m in zip(vids.tolist(), meas):
-        if i % 2 == 0:        # R = I, t_z = 0: the camera depth is the z
-            g_mx.add_edge(sba.EdgeStereoSE3ProjectXYZ, [v, i],
-                          [m[0], m[1], m[0] - SBA_BF / truth[v][2]],
-                          np.eye(3), param_id=2)
-        else:
-            g_mx.add_edge(sba.EdgeSE3ProjectXYZ, [v, i], m, np.eye(2),
-                          param_id=1)
+    # the sharded run of phase 15 builds the same map in its workers
+    g_mx = mixed_sba_graph(base, truth, Graph, sba, SBA_BF)
 
     for j, v in enumerate(pts):
         if j % 3 == 0:
@@ -3692,6 +3713,9 @@ def _spawn_workers(nproc, backend, cases, out, timeout=PARALLEL_TIMEOUT):
          "--init-method", f"tcp://127.0.0.1:{port}", "--nproc", str(nproc),
          "--pid", str(r), "--device", "cuda", "--backend", backend,
          "--case", cases, "--iters", str(SHARDED_ITERS),
+         "--sba-iters", str(SHARDED_SBA_ITERS), "--sba-scene",
+         ",".join(str(SBA_SCENE[k]) for k in ("n_cameras", "n_points",
+                                                "seed")),
          "--n-poses", str(SHARDED_MANHATTAN_POSES), "--g2o", DATASET,
          "--bal", os.path.join(BAL, LADYBUG), "--out", out],
         cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -3732,10 +3756,91 @@ def _need_launched(path, launches, kernels):
                            f"ranks' run: {launches}")
 
 
-def sharded_kernel_phase(torch, sk, oh, k4, k56):
-    """K4 at one rank's pair batch of the sharded explicit Schur run, and
-    K5 (the dims-major gather) and K6 (the dims-major segment sum, D = 9
-    and 81) at one rank's slab rows of the sharded implicit run, each with
+def _need_launched_every_rank(path, ranks, kernels):
+    """Each rank's run of ``path`` launched every kernel of ``kernels``."""
+    for r, launches in enumerate(ranks):
+        _need_launched(f"{path} rank {r}", launches.get(path, {}), kernels)
+
+
+def rowmajor_kernel_rows(torch, oh, rng, ids, S, widths, tag):
+    """K7 (the row-major gather, ``onehot_gather``) and K8 (the row-major
+    segment sum, ``onehot_scatter_add``) at one rank's held camera ids of a
+    sharded path: against their plain versions (float32 and float64; the
+    gather bit for bit), then K7 at the gathered width and K8 at both
+    widths timed in float32 beside the plain version and the library call
+    (``index_select`` / ``index_add`` over a zero row past the table), in
+    turns, with the bound and the device µs and operations of one call.
+    Returns ``{shape: {kernel: facts}}``."""
+    out = {}
+    N = ids.shape[0]
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        for D in widths:
+            table = torch.as_tensor(rng.standard_normal((S, D)), dtype=dtype,
+                                    device="cuda")
+            rows = torch.as_tensor(rng.standard_normal((N, D)), dtype=dtype,
+                                   device="cuda")
+            fns = {"onehot_gather": (
+                       lambda: oh.onehot_gather(ids, table),
+                       lambda: oh.onehot_gather_plain(ids, table)),
+                   "onehot_scatter_add": (
+                       lambda: oh.onehot_scatter_add(ids, rows, S),
+                       lambda: oh.onehot_scatter_add_plain(ids, rows, S))}
+            rel, err = {}, {}
+            for k, (kern, plain) in fns.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err[k] = (got - want).abs().max().item()
+                rel[k] = err[k] / max(want.abs().max().item(), 1e-300)
+            same = torch.equal(fns["onehot_gather"][0](),
+                               fns["onehot_gather"][1]())
+            shape = f"{N}x{D}<->{S}"
+            ok = rel["onehot_scatter_add"] <= TOL[dname] and same
+            phase("kernels", kernel="gather+segment_sum", dtype=dname,
+                  shape=shape, ids=tag,
+                  **{f"{k}_rel_err": f"{v:.3e}" for k, v in rel.items()},
+                  gather_bit_equal=same, tol=TOL[dname], ok=ok)
+            if not ok:
+                raise RuntimeError(f"a row-major kernel disagrees with its "
+                                   f"plain version at {tag} {dname} {shape}: "
+                                   f"{rel}, gather bit-equal {same}")
+            if dtype != torch.float32:
+                continue
+            tz = torch.cat([table, table.new_zeros((1, D))])
+            Z = tz.new_zeros((S + 1, D))
+            lib = {"onehot_gather": lambda: torch.index_select(tz, 0, ids),
+                   "onehot_scatter_add": lambda: torch.index_add(
+                       Z, 0, ids, rows)}
+            for k, (kern, plain) in fns.items():
+                if k == "onehot_gather" and D != widths[0]:
+                    continue          # the paths gather the cameras' states
+                t = _in_turns(torch, {"plain_ms": plain,
+                                      "library_ms": lib[k], "ms": kern},
+                              reps=200, rounds=6)
+                dev_us, ops = device_profile(torch, kern)
+                b_ms, b_by = bound(k, (N, D, S))
+                out[f"{tag}:{k}:{shape}"] = {k: dict(
+                    max_abs_err=err[k], ms=t["ms"], plain_ms=t["plain_ms"],
+                    library_ms=t["library_ms"], bound_ms=b_ms,
+                    bound_by=b_by, device_us_per_call=dev_us,
+                    device_ops_per_call=ops)}
+                phase("kernel_times", kernel=k, path=tag, shape=shape,
+                      dtype="float32", ms=f"{t['ms']:.4f}",
+                      plain_ms=f"{t['plain_ms']:.4f}",
+                      library_ms=f"{t['library_ms']:.4f}",
+                      bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                      device_us_per_call=f"{dev_us:.2f}",
+                      device_ops_per_call=ops)
+    return out
+
+
+def sharded_kernel_phase(torch, sk, oh, k4, k56, k78):
+    """K4 at one rank's pair batch of the sharded explicit Schur run; K5
+    (the dims-major gather) and K6 (the dims-major segment sum) at one
+    rank's slab rows of each sharded dims-major run (``k56``: ``(inputs,
+    tag, widths)``: the implicit run at D = 9 and 81, CGLS at 9); K7 and K8
+    (row-major) at one rank's held rows of each sharded runtime-bucketed or
+    multi-observer batch (``k78``: ``(ids, S, widths, tag)``), each with
     that run's own ids: against their plain versions (float32, and float64
     for the gathers' bits and the sums' tolerance), then timed in float32
     beside the plain version and the library call, in turns, with the
@@ -3773,11 +3878,23 @@ def sharded_kernel_phase(torch, sk, oh, k4, k56):
           library_ms=f"{t['library_ms']:.4f}", bound_ms=f"{b_ms:.4f}",
           bound_by=b_by, device_us_per_call=f"{dev_us:.2f}",
           device_ops_per_call=ops)
+    for k56_, tag, widths in k56:
+        out.update(dims_major_kernel_rows(torch, oh, rng, k56_, tag, widths))
+    for ids, S, widths, tag in k78:
+        out.update(rowmajor_kernel_rows(torch, oh, rng, ids, S, widths, tag))
+    return out
+
+
+def dims_major_kernel_rows(torch, oh, rng, k56, tag, widths):
+    """K5 (the dims-major gather) and K6 (the dims-major segment sum) at
+    one rank's slab-row ids of a sharded path, as
+    :func:`rowmajor_kernel_rows` holds and times K7/K8."""
+    out = {}
     ids, S = k56["ids"], int(k56["S"])
     N = ids.shape[0]
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[1]
-        for D in (9, 81):
+        for D in widths:
             table = torch.as_tensor(rng.standard_normal((S, D)), dtype=dtype,
                                     device="cuda")
             rows_t = torch.as_tensor(rng.standard_normal((D, N)),
@@ -3800,7 +3917,7 @@ def sharded_kernel_phase(torch, sk, oh, k4, k56):
             shape = f"{N}x{D}<->{S}"
             ok = rel["onehot_scatter_add_t"] <= TOL[dname] and same
             phase("kernels", kernel="gather_t+segment_sum_t", dtype=dname,
-                  shape=shape, ids="sharded_implicit_rank0",
+                  shape=shape, ids=tag,
                   **{f"{k}_rel_err": f"{v:.3e}" for k, v in rel.items()},
                   gather_bit_equal=same, tol=TOL[dname], ok=ok)
             if not ok:
@@ -3815,7 +3932,7 @@ def sharded_kernel_phase(torch, sk, oh, k4, k56):
                    "onehot_scatter_add_t": lambda: torch.index_add(
                        Zt, 1, ids, rows_t)}
             for k, (kern, plain) in fns.items():
-                if k == "onehot_gather_t" and D != 9:
+                if k == "onehot_gather_t" and D != widths[0]:
                     continue          # the paths gather the (49, 9) states
                 t = _in_turns(torch, {"plain_ms": plain,
                                       "library_ms": lib[k], "ms": kern},
@@ -3824,12 +3941,12 @@ def sharded_kernel_phase(torch, sk, oh, k4, k56):
                 entry = ("onehot_gather" if "gather" in k
                          else "onehot_scatter_add")
                 b_ms, b_by = bound(entry, (N, D, S))
-                out[f"sharded_implicit:{k}:{shape}"] = {entry: dict(
+                out[f"{tag}:{k}:{shape}"] = {entry: dict(
                     max_abs_err=err[k], ms=t["ms"], plain_ms=t["plain_ms"],
                     library_ms=t["library_ms"], bound_ms=b_ms,
                     bound_by=b_by, device_us_per_call=dev_us,
                     device_ops_per_call=ops)}
-                phase("kernel_times", kernel=k, path="sharded_implicit_rank0",
+                phase("kernel_times", kernel=k, path=tag,
                       shape=shape, dtype="float32", ms=f"{t['ms']:.4f}",
                       plain_ms=f"{t['plain_ms']:.4f}",
                       library_ms=f"{t['library_ms']:.4f}",
@@ -3922,15 +4039,15 @@ def parallel_phase(torch, g2o, ck, sk, oh, wrappers, times):
     t_phase = time.perf_counter()
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
-        res, ranks = _spawn_workers(PARALLEL_WORLD, "gloo",
-                                    "sphere,manhattan,schur,implicit",
+        res, ranks = _spawn_workers(PARALLEL_WORLD, "gloo", GLOO_CASES,
                                     os.path.join(tmp, "gloo.json"))
-        nccl, nccl_ranks = _spawn_workers(1, "nccl", "sphere",
+        nccl, nccl_ranks = _spawn_workers(1, "nccl", NCCL_CASES,
                                           os.path.join(tmp, "nccl.json"))
-        k4 = torch.load(os.path.join(tmp, "gloo.json.k4.pt"),
-                        map_location="cuda")
-        k56 = torch.load(os.path.join(tmp, "gloo.json.k56.pt"),
-                         map_location="cuda")
+
+        k4 = _saved(torch, tmp, "k4")
+        k56c, k78 = bucketed_kernel_inputs(torch, tmp)
+        k56 = [(_saved(torch, tmp, "k56"), "sharded_implicit_rank0", (9, 81)),
+               k56c]
     sph, sph1 = res["sphere"], nccl["sphere"]
     for pre in ("chunk2", "jacobi"):
         for run in (sph, sph1):
@@ -4031,12 +4148,112 @@ def parallel_phase(torch, g2o, ck, sk, oh, wrappers, times):
                    ("onehot_gather_t", "onehot_scatter_add_t"))
     by_path["sharded_implicit_ladybug"] = launches
 
-    times.update(sharded_kernel_phase(torch, sk, oh, k4, k56))
+    by_path.update(bucketed_runs(res, nccl, ranks, nccl_ranks))
+    times.update(sharded_kernel_phase(torch, sk, oh, k4, k56, k78))
     by_path["mixed_manhattan"] = mixed_phase(torch, g2o, ck, wrappers, times)
     phase("done_parallel", seconds=f"{time.perf_counter() - t_phase:.1f}",
           **{f"rank0_seconds_{case}": f"{res[case]['seconds']:.1f}"
-             for case in ("sphere", "manhattan", "schur", "implicit")},
-          rank0_seconds_nccl_sphere=f"{sph1['seconds']:.1f}")
+             for case in GLOO_CASES.split(",")},
+          **{f"rank0_seconds_nccl_{case}": f"{nccl[case]['seconds']:.1f}"
+             for case in NCCL_CASES.split(",")})
+    return by_path
+
+
+def _saved(torch, tmp, tag):
+    """Kernel inputs rank 0 of the Gloo spawn saved in ``tmp``."""
+    return torch.load(os.path.join(tmp, f"gloo.json.{tag}.pt"),
+                      map_location="cuda")
+
+
+def bucketed_kernel_inputs(torch, tmp):
+    """The bucketed runs' kernel inputs at rank 0's rows: the CGLS run's
+    K5/K6 entry ``(inputs, tag, widths)`` and the K7/K8 entries ``(ids, S,
+    widths, tag)`` of the runtime run and of each mixed-map batch."""
+    k78r, k78m = _saved(torch, tmp, "k78"), _saved(torch, tmp, "k78m")
+    k78 = [(k78r["ids"], int(k78r["S"]), tuple(k78r["widths"]),
+            "sharded_runtime_rank0")]
+    for name, ids in k78m["ids"].items():
+        kind = "stereo" if "STEREO" in name else "mono"
+        k78.append((ids, int(k78m["S"]), tuple(k78m["widths"]),
+                    f"sharded_mixed_{kind}_rank0"))
+    return (_saved(torch, tmp, "k56c"), "sharded_cgls_rank0", (9,)), k78
+
+
+# the bucketed runs: (worker case, phase tag, the kernels every rank must
+# have launched, the f32 chi2 bound)
+BUCKETED = {"runtime": ("sharded_runtime_ladybug",
+                        ("onehot_gather", "onehot_scatter_add"),
+                        SHARDED_SCHUR_BOUND),
+            "cgls": ("sharded_cgls_ladybug",
+                     ("onehot_gather_t", "onehot_scatter_add_t"),
+                     SHARDED_SCHUR_BOUND),
+            "mixed_sba": ("sharded_mixed_sba",
+                          ("onehot_gather", "onehot_scatter_add"),
+                          SHARDED_MIXED_BOUND)}
+
+
+def bucketed_runs(res, nccl, ranks, nccl_ranks):
+    """``[sharded_runtime_ladybug]``, ``[sharded_cgls_ladybug]``,
+    ``[sharded_mixed_sba]``: the landmark-bucketed layouts at two Gloo ranks
+    and one NCCL rank — the float64 step (CGLS: the solve) against one
+    process's, the float32 LM runs' chi2 against their bound, ms per
+    λ-trial of one process, two ranks and one NCCL rank, all-reduces per
+    trial with their host ms and KB per call, and each path's kernels
+    launched on every rank.  Returns the launches of each path, summed over
+    the Gloo ranks."""
+    by_path = {}
+    for case in BUCKETED_RUNS:
+        tag, kernels, chi_bound = BUCKETED[case]
+        g, n = res[case], nccl[case]
+        u, g2, n1 = g["lm_unsharded"], g["lm_sharded"], n["lm_sharded"]
+        if case == "cgls":
+            step = {f"{k}_dx_rel_diff": r["dx_rel_diff"]
+                    for k, r in (("gloo2", g), ("nccl1", n))}
+            ok_step = all(v <= SHARDED_STEP_RTOL for v in step.values())
+        else:
+            step = {f"{k}_{f}": r[f] for k, r in (("gloo2", g), ("nccl1", n))
+                    for f in ("max_rel_diff", "chi2_rel_diff")}
+            ok_step = all(r["max_rel_diff"] <= SHARDED_STEP_RTOL
+                          and r["chi2_rel_diff"] <= SHARDED_STEP_CHI2_RTOL
+                          and r["form"] == g["form"] for r in (g, n))
+            step["form"] = g["form"]
+        launches = _rank_sum(ranks, tag)
+        chis = {"unsharded": u["chi2_final"], "gloo2": g2["chi2_final"],
+                "nccl1": n1["chi2_final"]}
+        phase(tag, ranks=PARALLEL_WORLD,
+              **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+                 for k, v in step.items()},
+              step_rtol=SHARDED_STEP_RTOL,
+              step_chi2_rtol=SHARDED_STEP_CHI2_RTOL,
+              lm_iterations=g2["iterations"],
+              **{f"chi2_final_{k}": f"{v:.4f}" for k, v in chis.items()},
+              chi2_bound=chi_bound,
+              ms_per_trial_unsharded=f"{u['ms_per_trial']:.3f}",
+              ms_per_trial_gloo2=f"{g2['ms_per_trial']:.3f}",
+              ms_per_trial_nccl1=f"{n1['ms_per_trial']:.3f}",
+              cg_per_solve_gloo2=f"{g2['cg_per_solve']:.2f}",
+              cg_per_solve_unsharded=f"{u['cg_per_solve']:.2f}",
+              allreduce_calls_per_trial_gloo2=
+              f"{g2['allreduce_calls_per_trial']:.1f}",
+              allreduce_host_ms_per_call_gloo2=
+              f"{g2['allreduce_ms_per_call']:.4f}",
+              allreduce_kb_per_call_gloo2=
+              f"{g2['allreduce_bytes_per_call'] / 1e3:.1f}",
+              allreduce_host_ms_per_call_nccl1=
+              f"{n1['allreduce_ms_per_call']:.4f}",
+              **{f"launches_{k}": v for k, v in launches.items() if v},
+              **{f"launches_rank{r}_{k}": rk[tag][k]
+                 for r, rk in enumerate(ranks) for k in kernels})
+        if not ok_step:
+            raise RuntimeError(f"{tag}: the float64 step against one "
+                               f"process's: {step}")
+        if not all(math.isfinite(c) and c <= chi_bound
+                   for c in chis.values()):
+            raise RuntimeError(f"{tag}: float32 chi2 {chis} against the "
+                               f"bound {chi_bound}")
+        _need_launched_every_rank(tag, ranks, kernels)
+        _need_launched_every_rank(tag, nccl_ranks, kernels)
+        by_path[tag] = launches
     return by_path
 
 

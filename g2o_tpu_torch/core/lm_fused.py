@@ -57,35 +57,41 @@ def _cap_cache(cache, limit: int = 8):
         cache.pop(next(iter(cache)))
 
 
-def _solve(p, solver, lin, lam, sstate):
+def _solve(p, solver, lin, lam, sstate, data=None, aux=None):
     """One solve ``(dx, sstate', cg_iterations)``: through the STATEFUL
     protocol (``solver._solve_state_fn(data, lin, lam, state) -> (dx,
     state', stats)``, e.g. the PCG residual floor) when the solver has it,
-    else ``solver._solve_fn(data, lin, lam, solver.aux)`` with the state
-    passed through and a CG count of 0."""
+    else ``solver._solve_fn(data, lin, lam, aux)`` with the state passed
+    through and a CG count of 0.  ``data`` and ``aux`` default to the
+    problem's and the solver's."""
+    data = p.data if data is None else data
     solve_state_fn = getattr(solver, "_solve_state_fn", None)
     if solve_state_fn is None:
-        return solver._solve_fn(p.data, lin, lam, solver.aux), sstate, 0
-    dx, sstate, st = solve_state_fn(p.data, lin, lam, sstate)
+        return (solver._solve_fn(data, lin, lam,
+                                 solver.aux if aux is None else aux),
+                sstate, 0)
+    dx, sstate, st = solve_state_fn(data, lin, lam, sstate)
     return dx, sstate, int(st.get("cg_iterations", 0))
 
 
 def make_lm_iteration(problem, solver, max_trials: int):
-    """The LM iteration ``(estimates, lam, ni, sstate, lin) -> (estimates',
-    chi0, chi_final, lam', ni', good, trials, sstate', cg_total, lin')``;
-    :func:`_solve` threads the solver state ``sstate`` through every
-    trial."""
+    """The LM iteration ``(estimates, lam, ni, sstate, lin, data=None,
+    aux=None) -> (estimates', chi0, chi_final, lam', ni', good, trials,
+    sstate', cg_total, lin')``; :func:`_solve` threads the solver state
+    ``sstate`` through every trial.  ``data`` and ``aux`` default to the
+    problem's and the solver's."""
     p = problem
 
-    def one_iteration(estimates, lam, ni, sstate, lin):
+    def one_iteration(estimates, lam, ni, sstate, lin, data=None, aux=None):
+        data = p.data if data is None else data
         chi0 = float(lin.chi2_robust)
         good, trials, cg = False, 0, 0
         est_out, chi_out, lin_out = estimates, chi0, lin
         while not good and trials < max_trials:
-            dx, sstate, n_cg = _solve(p, solver, lin, lam, sstate)
+            dx, sstate, n_cg = _solve(p, solver, lin, lam, sstate, data, aux)
             cg += n_cg
-            cand = p.apply_update_fn(p.data, estimates, dx)
-            lin_cand = p.linearize_fn(p.data, cand)
+            cand = p.apply_update_fn(data, estimates, dx)
+            lin_cand = p.linearize_fn(data, cand)
             chi_new = float(lin_cand.chi2_robust)
             scale = float(torch.sum(dx * (lam * dx + lin.b))) + 1e-3
             rho = (chi0 - chi_new) / scale
@@ -102,6 +108,58 @@ def make_lm_iteration(problem, solver, max_trials: int):
                 lin_out)
 
     return one_iteration
+
+
+def _padded(values, n, fill, dtype, device):
+    """``values`` followed by ``fill`` up to ``n``: a history padded to the
+    JAX package's static length."""
+    out = torch.full((n,), fill, dtype=dtype, device=device)
+    if values:
+        out[:len(values)] = torch.tensor(values, dtype=dtype, device=device)
+    return out
+
+
+def make_lm_run(problem, solver, *, max_trials: int = 10,
+                max_iters: int = 512, gain_threshold: float = 0.0):
+    """The whole LM optimization as one function, as the JAX package's
+    ``make_lm_run`` returns it: ``run(data, estimates, lam, ni, n_iters,
+    aux, sstate) -> (estimates, lam, ni, iters_done, chi_hist, trial_hist,
+    cg_hist, chi_final)``, a loop of at most ``min(n_iters, max_iters)``
+    iterations of :func:`make_lm_iteration`.  ``lam < 0`` requests ``λ₀ =
+    −lam·max|H_jj|`` of the first linearization.  It stops after an
+    iteration that exhausts its trials or, with ``gain_threshold > 0``, one
+    past the first whose relative chi2 gain falls below it.  The histories
+    are padded to ``max_iters`` (chi2 NaN at ``state_dtype``, int32 counts
+    0); ``chi_final`` is ``inf`` after no iteration.  ``solver`` must be
+    set up for ``problem``; ``problem.estimates`` are left as they are."""
+    one_iteration = make_lm_iteration(problem, solver, max_trials)
+    p = problem
+    gt = float(gain_threshold)
+
+    def run(data, estimates, lam, ni, n_iters, aux, sstate):
+        lam, ni = float(lam), float(ni)
+        lin = p.linearize_fn(data, estimates)
+        if lam < 0:
+            lam = -lam * float(_max_abs_diag(p, lin))
+        est, chi_prev = estimates, math.inf
+        chi_hist, trial_hist, cg_hist = [], [], []
+        for it in range(min(int(n_iters), max_iters)):
+            (est, chi0, chi_f, lam, ni, good, trials, sstate, cg,
+             lin) = one_iteration(est, lam, ni, sstate, lin, data, aux)
+            chi_hist.append(chi0)
+            trial_hist.append(trials)
+            cg_hist.append(cg)
+            gain = (chi_prev - chi_f) / max(chi_prev, 1e-30)
+            chi_prev = chi_f
+            if not good or (gt > 0 and it > 0 and gain < gt):
+                break
+        dev = p.device
+        return (est, lam, ni, len(chi_hist),
+                _padded(chi_hist, max_iters, math.nan, p.state_dtype, dev),
+                _padded(trial_hist, max_iters, 0, torch.int32, dev),
+                _padded(cg_hist, max_iters, 0, torch.int32, dev), chi_prev)
+
+    return run
 
 
 def optimize_fused(problem, solver, max_iterations: int, *,
@@ -204,6 +262,42 @@ def optimize_fused_gn(problem, solver, max_iterations: int, *,
         "cg_per_iteration": cg_hist,
         "chi2_final": chi,
     }
+
+
+def make_gn_run(problem, solver, *, max_iters: int = 512):
+    """The whole Gauss-Newton optimization as one function, as the JAX
+    package's ``make_gn_run`` returns it: ``run(data, estimates, n_iters,
+    aux, sstate) -> (estimates, iters_done, chi_hist, cg_hist,
+    chi_final)``, at most ``min(n_iters, max_iters)`` iterations of
+    linearize → solve at λ = 0 → oplus (reference
+    ``optimization_algorithm_gauss_newton.cpp:50``).  A step whose chi2 is
+    not finite is dropped and ends the run; a stateful solver threads its
+    state across iterations.  The histories are padded to ``max_iters``
+    (chi2 NaN at ``state_dtype``, int32 CG counts 0).  ``solver`` must be
+    set up for ``problem``; ``problem.estimates`` are left as they are."""
+    p = problem
+
+    def run(data, estimates, n_iters, aux, sstate):
+        est = estimates
+        lin = p.linearize_fn(data, est)
+        chi = float(lin.chi2_robust)
+        chi_hist, cg_hist = [], []
+        for _ in range(min(int(n_iters), max_iters)):
+            dx, sstate, n_cg = _solve(p, solver, lin, 0.0, sstate, data, aux)
+            cg_hist.append(n_cg)
+            chi_hist.append(chi)
+            new = p.apply_update_fn(data, est, dx)
+            lin_new = p.linearize_fn(data, new)
+            chi_new = float(lin_new.chi2_robust)
+            if not math.isfinite(chi_new):
+                break
+            est, lin, chi = new, lin_new, chi_new
+        dev = p.device
+        return (est, len(chi_hist),
+                _padded(chi_hist, max_iters, math.nan, p.state_dtype, dev),
+                _padded(cg_hist, max_iters, 0, torch.int32, dev), chi)
+
+    return run
 
 
 class FusedLevenbergMarquardt(OptimizationAlgorithm):

@@ -55,7 +55,7 @@ from torch.func import jvp, vjp, vmap
 
 from g2o_tpu_torch.core.types import REGISTRY, EdgeType
 from g2o_tpu_torch.ops import robust as robust_mod
-from g2o_tpu_torch.ops.bucketed import bucket_by_segment
+from g2o_tpu_torch.ops.bucketed import bucket_by_segment, slab_sum_t
 from g2o_tpu_torch.ops.onehot import onehot_gather, onehot_scatter_add_t
 
 
@@ -515,12 +515,7 @@ class Problem:
                 m = max(0, min(n_here, nb - lo))
                 zf[:, lo:lo + m] = z[:, :m]
                 z = zf
-            out, off = [], 0
-            for n, dg in zip(spec.counts, spec.degrees):
-                out.append(z[:, off:off + n * dg].reshape(
-                    z.shape[0], dg, n).sum(dim=1))
-                off += n * dg
-            return torch.cat(out, dim=1)
+            return slab_sum_t(spec.counts, spec.degrees, z)
 
         ext = extras.setdefault(name, {})
         WJ_ts = []

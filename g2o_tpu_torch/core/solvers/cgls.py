@@ -32,14 +32,19 @@ other batch gathers with ``index_select`` and sums with ``index_add_``.
 ignored; ``matvec_precision`` is validated and has no effect (TF32 is off
 package-wide).  On sharded data (``ProblemData.group``) each ``‖J p‖²``
 and ``Jᵀ r`` over this process's edge rows is completed by one
-all-reduce; landmark-bucketed batches raise there.
+all-reduce.  A process holds one contiguous window of a bucketed batch's
+slab rows: its landmark values are read from the slab broadcast cut to
+that window, and its landmark sums sit at their places in a zeroed
+full-width slab buffer before the per-slab sums, so the all-reduce of
+``Jᵀ r`` completes them with the camera sums.
 """
 
 from __future__ import annotations
 
 import torch
 
-from g2o_tpu_torch.core.problem import edge_sum_
+from g2o_tpu_torch.core.problem import edge_sum_, row_window
+from g2o_tpu_torch.ops.bucketed import slab_broadcast_t, slab_sum_t
 from g2o_tpu_torch.ops.onehot import onehot_gather_t, onehot_scatter_add_t
 from g2o_tpu_torch.ops.smallblocks import chol_small, inv_small
 
@@ -73,17 +78,27 @@ class CGLSSolver:
         max_iter, eta = self.max_iter, self.eta
         dtype, dev = p.dtype, p.device
         specs = p.bucket_specs
-        # the camera slot's contiguous int32 ids for the kernels, once
-        cam_ids = {name: p.data.plans[name]["ids32"][spec.pose_slot]
-                   for name, spec in specs.items()}
 
-        def slabs(spec):
-            """``(row offset, landmark offset, n, degree)`` per slab."""
-            off = k = 0
-            for n, d in zip(spec.counts, spec.degrees):
-                yield off, k, n, d
-                off += n * d
-                k += n
+        def window(data, name):
+            """``(lo, m)``: this process holds slab rows ``[lo, lo + m)`` of
+            bucketed batch ``name`` as its first ``m`` rows (all of them
+            unsharded); any rows past them are the pad-to-multiple tail."""
+            lo, n = row_window(data, name)
+            return lo, max(0, min(n, specs[name].n_rows - lo))
+
+        def slab_sums(data, name, z):
+            """Per-row ``(k, m)`` of the window -> per-landmark ``(k,
+            S_used)`` sums in bucket order: sharded, the rows sit at their
+            places in a zeroed full-width slab buffer (this process's
+            partial sums); each degree-major slab is a ``(k, deg, n)`` view
+            summed over deg."""
+            spec = specs[name]
+            lo, m = window(data, name)
+            if m != spec.n_rows:
+                zf = z.new_zeros((z.shape[0], spec.n_rows))
+                zf[:, lo:lo + m] = z
+                z = zf
+            return slab_sum_t(spec.counts, spec.degrees, z)
 
         def whiten(lin):
             """Per edge type the lower Cholesky factor of W: ``(E, r, r)``,
@@ -128,22 +143,20 @@ class CGLSSolver:
                 Jd = lin.jacs[name]                       # (r, d_s, E)
                 ps, ls = spec.pose_slot, spec.lm_slot
                 E = Jd[ls].shape[-1]
-                rows_t = onehot_gather_t(cam_ids[name],
-                                         vb[et.vertex_types[ps].name])
+                ids = data.plans[name]["ids32"][ps]
+                rows_t = onehot_gather_t(ids, vb[et.vertex_types[ps].name])
                 y = torch.sum(Jd[ps] * rows_t[None], dim=1)      # (r, E)
-                v_used = landmark_values(data, name, spec,
-                                         vb[et.vertex_types[ls].name])
-                r_dim, dl = Jd[ls].shape[0], Jd[ls].shape[1]
-                chunks = []
-                for off, k, n, dg in slabs(spec):
-                    Jb = Jd[ls][:, :, off:off + n * dg].reshape(
-                        r_dim, dl, dg, n)
-                    vv = v_used[k:k + n].T                         # (dl, n)
-                    chunks.append(torch.sum(Jb * vv[None, :, None, :],
-                                            dim=1).reshape(r_dim, n * dg))
-                if E > spec.n_rows:       # pad-to-multiple tail: J == 0
-                    chunks.append(y.new_zeros((r_dim, E - spec.n_rows)))
-                y = y + torch.cat(chunks, dim=1)
+                # the landmark slot: each slab row's landmark value
+                lo, m = window(data, name)
+                v_rows = slab_broadcast_t(
+                    spec.counts, spec.degrees, landmark_values(
+                        data, name, spec, vb[et.vertex_types[ls].name]).T)
+                yl = torch.sum(Jd[ls][:, :, :m] * v_rows[None, :, lo:lo + m],
+                               dim=1)                             # (r, m)
+                if E > m:                 # pad-to-multiple tail: J == 0
+                    yl = torch.cat([yl, yl.new_zeros((yl.shape[0], E - m))],
+                                   dim=1)
+                y = y + yl
                 # u[r, e] = Σ_s L[s, r, e] y[s, e]  (Lᵀ y)
                 out[name] = torch.sum(Ls[name] * y[:, None, :], dim=0)
             return out
@@ -172,16 +185,11 @@ class CGLSSolver:
                 # z[s, e] = Σ_r L[s, r, e] u[r, e]
                 z = torch.sum(Ls[name] * u[name][None, :, :], dim=1)
                 contrib = torch.sum(Jd[ps] * z[:, None, :], dim=0)
-                out[pt] += onehot_scatter_add_t(cam_ids[name], contrib,
-                                                p.counts[pt])
-                r_dim, dl = Jd[ls].shape[0], Jd[ls].shape[1]
-                parts = []
-                for off, k, n, dg in slabs(spec):
-                    Jb = Jd[ls][:, :, off:off + n * dg].reshape(
-                        r_dim, dl, dg, n)
-                    zb = z[:, off:off + n * dg].reshape(r_dim, 1, dg, n)
-                    parts.append(torch.sum(Jb * zb, dim=(0, 2)).T)  # (n, dl)
-                part = torch.cat(parts, dim=0)
+                out[pt] += onehot_scatter_add_t(
+                    data.plans[name]["ids32"][ps], contrib, p.counts[pt])
+                m = window(data, name)[1]
+                part = slab_sums(data, name, torch.sum(
+                    Jd[ls][:, :, :m] * z[:, None, :m], dim=0)).T  # (S, dl)
                 if spec.seg_identity:
                     out[lt][:part.shape[0]] += part
                 else:
@@ -208,11 +216,6 @@ class CGLSSolver:
         tdot = p.tree_dot
 
         def solve(data, lin, lam, aux=()):
-            if data.group is not None and specs:
-                raise NotImplementedError(
-                    "CGLSSolver: landmark-bucketed batches on sharded data "
-                    "(ProblemData.group) are not supported yet "
-                    "(ROADMAP A.8.5)")
             Ls = whiten(lin)
             minv = build_precond(data, lin, lam)
             # s0 = Jᵀ sqrt(W)ᵀ (sqrt(W) e) with b's sign is exactly lin.b

@@ -23,10 +23,10 @@ marginalized) has three observation layouts:
   batch's ``vidx``;
 * ``layout="bucketed"`` on a problem built WITHOUT ``bucket_landmarks`` —
   at setup the observations are planned into the landmark-degree buckets
-  of ``g2o_tpu_torch/ops/bucketed.py`` (a host plan in ``aux``): the
-  landmark side reduces per slab, the camera side gathers and sums with the
-  row-major kernels of ``ops/onehot.py`` (padded slots carry the sentinel
-  camera id ``N_cam``: zero on the gather, dropped by the sum);
+  of ``g2o_tpu_torch/ops/bucketed.py`` (a host plan): the B blocks of the
+  real rows are taken in slab order, the landmark side reduces per slab
+  with the padding slots left zero, the camera side gathers and sums with
+  the row-major kernels of ``ops/onehot.py``;
 * a problem built WITH ``bucket_landmarks=True`` (``layout="auto"`` picks
   it): fully DIMS-MAJOR (``dm``) — the off-diagonal blocks and the
   bucket-order landmark system come from the linearization's ``extras``,
@@ -55,14 +55,16 @@ e.g. :func:`g2o_tpu_torch.types.bal.bal_gauge_basis`) runs CG on the
 orthogonal complement of the free-gauge null space (binary path only).
 
 Sharded data (``ProblemData.group``: each process holds a slice of the edge
-rows) runs on the ``rows`` layout, the general path and the dims-major
-layout of a problem built with ``bucket_landmarks=True``: every sum over
-edges into a per-vertex result — ``bschur``, the preconditioner's blocks,
-the landmark and camera sums of each ``S·v`` and the back-substitution's
-landmark sums — is this process's partial sum, completed by one
-all-reduce (a replicated term counted on the first process only); the CG
-vectors and its stop test stay replicated.  The runtime-bucketed and
-multi-observer layouts raise ``NotImplementedError`` on sharded data.
+rows) runs in every layout: every sum over edges into a per-vertex result
+— ``bschur``, the preconditioner's blocks, the landmark and camera sums of
+each ``S·v`` and the back-substitution's landmark sums — is this
+process's partial sum, completed by one all-reduce (a replicated term
+counted on the first process only); the CG vectors and its stop test stay
+replicated.  A bucketed batch works on the slab rows this process holds,
+in slab order: a contiguous window of a compile-time bucketed batch, or,
+on a plan made at setup, the rows of its window mapped through the plan
+(``rows_here``); its per-row landmark terms sit at their slab places in a
+zeroed full-width buffer for the per-slab sums.
 
 The JAX package's ``lax.while_loop`` is a Python loop here: its stop test
 reads one scalar from the device per CG iteration.  ``matvec_precision`` is
@@ -77,7 +79,8 @@ import torch
 
 from g2o_tpu_torch.core.problem import (edge_sum_, full_rows,
                                         replicated_part, row_window)
-from g2o_tpu_torch.ops.bucketed import bucket_by_segment
+from g2o_tpu_torch.ops.bucketed import (bucket_by_segment,
+                                        slab_broadcast_t, slab_sum_t)
 from g2o_tpu_torch.ops.onehot import (onehot_gather, onehot_gather_t,
                                       onehot_scatter_add,
                                       onehot_scatter_add_t)
@@ -210,7 +213,7 @@ class ImplicitSchurSolver:
             if not lm_slots:
                 pose_edge_types.append(name)
                 continue
-            vidx = p.data.edges[name].vidx.cpu().numpy()
+            vidx = full_rows(p.data, p.data.edges[name].vidx).cpu().numpy()
             hot = [s for s in lm_slots
                    if marg_np[et.vertex_types[s].name][
                        np.minimum(vidx[:, s],
@@ -281,23 +284,24 @@ class ImplicitSchurSolver:
         rem_lm = list(dict.fromkeys(lm_of[name] for name, _, _ in rem))
 
         # ---------------- host symbolic phase: bucket plans ------------- #
-        bspec, aux = {}, {}
+        # a batch bucketed at run time keeps its plan's slab order on the
+        # host (``perm_src``: the batch row of each slab row, the batch's
+        # row count on a padding row) with the camera id of every batch row
+        bspec, aux, plans = {}, {}, {}
         if bucketed:
             for name, ps, ls in obs_specs:
                 if pre[name]:
                     sp = p.bucket_specs[name]
                     bspec[name] = (sp.counts, sp.degrees, sp.n_rows)
                     continue
-                vidx = p.data.edges[name].vidx.cpu().numpy()
+                # every edge row (gathered when this process holds a slice)
+                vidx = full_rows(p.data,
+                                 p.data.edges[name].vidx).cpu().numpy()
                 plan = bucket_by_segment(vidx[:, ls], p.counts[lm_of[name]],
                                          max_buckets=self.max_buckets)
-                camz = np.concatenate([vidx[:, ps].astype(np.int64),
-                                       [p.counts[pt_of[name]]]])
-                cam_pad = camz[plan.perm_src]
+                plans[name] = (plan.perm_src.astype(np.int64),
+                               vidx[:, ps].astype(np.int64))
                 aux[name] = dict(
-                    perm=torch.as_tensor(plan.perm_src.astype(np.int64),
-                                         device=dev),
-                    cam=torch.as_tensor(cam_pad.astype(np.int32), device=dev),
                     segp=torch.as_tensor(plan.seg_perm.astype(np.int64),
                                          device=dev))
                 bspec[name] = (plan.counts, plan.degrees,
@@ -308,92 +312,83 @@ class ImplicitSchurSolver:
                 for t, v in self.deflate_basis.items()}
         self.aux = aux
 
-        # landmark side: per-bucket slabs, degree-major (deg, n_seg)
-        def bucket_down(spec, B_pad, u_pad):
-            """Σ_rows Bᵀu per segment, row-major: (S_used, dl)."""
-            counts, degrees, _ = spec
-            out, off = [], 0
-            for n, d in zip(counts, degrees):
-                Bb = B_pad[off:off + n * d].reshape((d, n) + B_pad.shape[1:])
-                ub = u_pad[off:off + n * d].reshape((d, n) + u_pad.shape[1:])
-                out.append(torch.einsum("dnij,dni->nj", Bb, ub))
-                off += n * d
-            return torch.cat(out, dim=0)
+        held = {}
 
-        def bucket_up(spec, B_pad, s_used):
-            """B s_{segment(row)} per padded row, row-major: (E_pad, dp)."""
-            counts, degrees, _ = spec
-            out, off, k = [], 0, 0
-            for n, d in zip(counts, degrees):
-                Bb = B_pad[off:off + n * d].reshape((d, n) + B_pad.shape[1:])
-                yb = torch.einsum("dnij,nj->dni", Bb, s_used[k:k + n])
-                out.append(yb.reshape((n * d,) + yb.shape[2:]))
-                off += n * d
-                k += n
-            return torch.cat(out, dim=0)
-
-        def win(data, name):
-            """``(lo, m)``: this process holds slab rows ``[lo, lo + m)``
-            of batch ``name`` (all of them unsharded)."""
-            nb = bspec[name][2]
-            if data.group is None:
-                return 0, nb
+        def rows_here(data, name):
+            """``(sel, places, cam)``: the slab rows of batch ``name`` that
+            this process holds, in slab order — ``sel`` picks them from its
+            own rows, ``places`` gives their slab positions and ``cam``
+            their camera ids (int32, for the kernels).  A compile-time
+            bucketed batch is in slab order already (slices over its
+            window); a run-time plan maps the process's row window through
+            ``perm_src`` (its padding rows lie in no window: their B is
+            zero).  Unsharded data is the window of every row."""
             lo, n = row_window(data, name)
-            return lo, max(0, min(n, nb - lo))
+            nb = bspec[name][2]
+            if pre[name]:
+                m = max(0, min(n, nb - lo))
+                ps = p.bucket_specs[name].pose_slot
+                return (slice(0, m), slice(lo, lo + m),
+                        data.plans[name]["ids32"][ps, :m])
+            key = (name, lo, n)
+            if key not in held:
+                perm_src, cam = plans[name]
+                q = np.nonzero((perm_src >= lo) & (perm_src < lo + n))[0]
+                src = perm_src[q]
+                held[key] = (
+                    torch.as_tensor(src - lo, device=dev),
+                    torch.as_tensor(q, device=dev),
+                    torch.as_tensor(cam[src].astype(np.int32), device=dev))
+            return held[key]
 
-        def bucket_down_t(spec, Bt, ut, data, name):
-            """Σ_rows Bᵀu, dims-major: Bt (dp, dl, E), ut (dp, E) ->
-            (dl, S_used) in bucket order.  Sharded, this process's rows sit
-            in a zeroed slab buffer and one all-reduce completes the
-            sums."""
-            counts, degrees, nb = spec
-            z = torch.sum(Bt * ut[:, None, :], dim=0)
-            if data.group is not None:
-                lo, m = win(data, name)
-                zf = z.new_zeros((z.shape[0], nb))
-                zf[:, lo:lo + m] = z
+        def take(x, idx):
+            """``x[..., idx]`` for a slice or an index tensor."""
+            if isinstance(idx, slice):
+                return x[..., idx]
+            return x.index_select(x.dim() - 1, idx)
+
+        def slab_sums(data, name, z):
+            """Per-row ``(k, n_here)`` -> per-segment ``(k, S_used)`` sums
+            in bucket order: the rows sit at their places in a zeroed
+            full-width slab buffer, each degree-major slab a ``(k, deg,
+            n)`` view summed over deg.  Sharded, these are this process's
+            partial sums."""
+            counts, degrees, nb = bspec[name]
+            places = rows_here(data, name)[1]
+            if not (isinstance(places, slice) and places == slice(0, nb)):
+                zf = z.new_zeros(z.shape[:-1] + (nb,))
+                if isinstance(places, slice):
+                    zf[..., places] = z
+                else:
+                    zf.index_copy_(zf.dim() - 1, places, z)
                 z = zf
-            out, off = [], 0
-            for n, d in zip(counts, degrees):
-                out.append(z[:, off:off + n * d].reshape(
-                    z.shape[0], d, n).sum(dim=1))
-                off += n * d
-            out = torch.cat(out, dim=1)
+            return slab_sum_t(counts, degrees, z)
+
+        def bucket_down_t(Bt, ut, data, name):
+            """Σ_rows Bᵀu, dims-major: Bt (dp, dl, n_here), ut (dp,
+            n_here) -> (dl, S_used) in bucket order, completed over the
+            processes by one all-reduce."""
+            out = slab_sums(data, name, torch.sum(Bt * ut[:, None, :], dim=0))
             edge_sum_(data, out)
             return out
 
-        def bucket_broadcast_t(spec, x):
-            """Per-segment ``(..., S_used)`` -> padded rows ``(..., E)``."""
-            counts, degrees, _ = spec
-            parts, off = [], 0
-            for n, d in zip(counts, degrees):
-                xb = x[..., off:off + n]
-                parts.append(xb[..., None, :].expand(
-                    xb.shape[:-1] + (d, n)).reshape(xb.shape[:-1] + (n * d,)))
-                off += n
-            return torch.cat(parts, dim=-1)
+        def rows_of(data, name, x):
+            """Per-segment ``(..., S_used)`` -> the rows held here
+            ``(..., n_here)``."""
+            counts, degrees, _ = bspec[name]
+            return take(slab_broadcast_t(counts, degrees, x),
+                        rows_here(data, name)[1])
 
-        def bucket_up_t(spec, Bt, st, lo=0, m=None):
-            """B s per row, dims-major: st (dl, S_used) -> (dp, E), at slab
-            rows ``[lo, lo + m)``."""
-            x = bucket_broadcast_t(spec, st)
-            if m is not None:
-                x = x[..., lo:lo + m]
+        def bucket_up_t(Bt, x):
+            """B s per row, dims-major: x (dl, n_here) -> (dp, n_here)."""
             return torch.sum(Bt * x[None], dim=1)
 
-        def cam_of(data, name, ps):
-            """The camera ids (int32) of each slab row of batch ``name``
-            held here."""
-            if pre[name]:
-                return data.plans[name]["ids32"][ps, :win(data, name)[1]]
-            return aux[name]["cam"]
+        def seg_ident(name):
+            return pre[name] and p.bucket_specs[name].seg_identity
 
         def segp_of(data, name):
             return (data.plans[name]["segp"] if pre[name]
                     else aux[name]["segp"])
-
-        def seg_ident(name):
-            return pre[name] and p.bucket_specs[name].seg_identity
 
         # bucket-order <-> natural-order landmark rows: slices when the type
         # was reordered into bucket order at compile time, else ``segp``
@@ -416,6 +411,24 @@ class ImplicitSchurSolver:
                 out[segp_of(data, name)] = vals
             return out
 
+        def gather_t(data, name, v):
+            """``v[cam]`` of the rows held here, dims-major ``(d,
+            n_here)``: the dims-major gather on a ``dm`` batch, the
+            row-major one elsewhere."""
+            ids = rows_here(data, name)[2]
+            if dm[name]:
+                return onehot_gather_t(ids, v)
+            return onehot_gather(ids, v).T
+
+        def cam_sum_t(data, name, rows_t, n_cam):
+            """Σ per camera of dims-major rows ``(D, n_here)`` -> ``(n_cam,
+            D)``: this process's partial sums, with the dims-major segment
+            sum on a ``dm`` batch and the row-major one elsewhere."""
+            ids = rows_here(data, name)[2]
+            if dm[name]:
+                return onehot_scatter_add_t(ids, rows_t, n_cam)
+            return onehot_scatter_add(ids, rows_t.T.contiguous(), n_cam)
+
         # ------------------------------------------------------------------ #
         # per-λ-trial stages
         # ------------------------------------------------------------------ #
@@ -424,26 +437,29 @@ class ImplicitSchurSolver:
             """Landmark inverses and off-diagonal blocks: a dict ``ctx``
             the later stages read.  The ``dm`` batches take B and their
             bucket-order landmark system from the linearization's extras;
-            the others build B = Jpᵀ W Jl dims-major from the Jacobians."""
+            the others build B = Jpᵀ W Jl dims-major from the Jacobians.
+            ``Bt`` and ``DinvT`` of a bucketed batch hold its rows held
+            here in slab order and its landmark inverses in bucket
+            order."""
             ext = lin.extras or {}
             Dinv = {t: inv_small(D) for t, D in _damped_diag(
                 p, data, lin, lam,
                 [t for t in lm_types if t not in dm_lm]).items()}
-            Bt_s, Dinv_t, bl_bt = {}, {}, {}
+            Bt_b, DinvT, bl_bt = {}, {}, {}
             for name, ps, ls in obs_specs:
                 if not dm[name]:
                     continue
                 d = p.vertex_types[lm_of[name]].tangent_dim
-                Bt_s[name] = ext[name]["Bt"][:, :, :win(data, name)[1]]
+                Bt_b[name] = take(ext[name]["Bt"], rows_here(data, name)[0])
                 bl_bt[name] = ext[name]["bl_bucket_t"]            # (d, S)
                 Hll_t = ext[name]["Hll_bucket_t"].reshape(d, d, -1)
                 eye_t = torch.eye(d, dtype=dtype, device=dev)[:, :, None]
                 # all-zero blocks are fixed landmarks (their Jacobian slots
                 # are masked at linearize): a unit block, dx = 0
                 zero = (Hll_t == 0).all(dim=0).all(dim=0)[None, None, :]
-                Dinv_t[name] = inv_small_t(
+                DinvT[name] = inv_small_t(
                     torch.where(zero, eye_t, Hll_t + lam * eye_t))
-            B, Bt = {}, {}
+            B = {}
             for name, ps, ls in obs_specs:
                 if dm[name]:
                     continue
@@ -455,31 +471,15 @@ class ImplicitSchurSolver:
                     Jlt = Js[ls].permute(1, 2, 0)            # (r, dl, E)
                     Wt = W.permute(1, 2, 0)                  # (r, s, E)
                 WJl = torch.sum(Wt[:, :, None, :] * Jlt[None], dim=1)
-                Bt[name] = torch.sum(Jpt[:, :, None, :] * WJl[:, None],
-                                     dim=0)                  # (dp, dl, E)
-                B[name] = Bt[name].permute(2, 0, 1)
-            ctx = dict(Dinv=Dinv, Bt_s=Bt_s, Dinv_t=Dinv_t, bl_bt=bl_bt, B=B)
-            if bucketed:
-                # B in slab order once per solve (a compile-time bucketed
-                # batch is in slab order already; else the sentinel row E
-                # is zero); dims-major copies for the CG body
-                Bp, Bpt, Dinv_perm, DinvT_perm = {}, {}, {}, {}
-                for name, ps, ls in obs_specs:
-                    if dm[name]:
-                        continue
-                    nb = bspec[name][2]
-                    if pre[name]:
-                        Bp[name] = B[name].contiguous()
-                        Bpt[name] = Bt[name][:, :, :nb]
-                    else:
-                        Bz = torch.cat([B[name], B[name].new_zeros(
-                            (1,) + tuple(B[name].shape[1:]))])
-                        Bp[name] = Bz[aux[name]["perm"]]
-                        Bpt[name] = Bp[name][:nb].permute(1, 2, 0)
-                    Dinv_perm[name] = seg_take(data, name, Dinv[lm_of[name]])
-                    DinvT_perm[name] = Dinv_perm[name].permute(1, 2, 0)
-                ctx.update(Bp=Bp, Bpt=Bpt, Dinv_perm=Dinv_perm,
-                           DinvT_perm=DinvT_perm)
+                Bt = torch.sum(Jpt[:, :, None, :] * WJl[:, None],
+                               dim=0)                        # (dp, dl, E)
+                if bucketed:
+                    Bt_b[name] = take(Bt, rows_here(data, name)[0])
+                    DinvT[name] = seg_take(data, name,
+                                           Dinv[lm_of[name]]).permute(1, 2, 0)
+                else:
+                    B[name] = Bt.permute(2, 0, 1)
+            ctx = dict(Dinv=Dinv, Bt=Bt_b, DinvT=DinvT, bl_bt=bl_bt, B=B)
             ball = p.split_tangent(lin.b)
             ctx["bl"] = {t: ball[t] for t in lm_types}
             ctx["bp"] = {t: ball[t] for t in pose_types}
@@ -494,18 +494,16 @@ class ImplicitSchurSolver:
                       for t, v in ctx["bp"].items()}
             for name, ps, ls in obs_specs:
                 pt, lt = pt_of[name], lm_of[name]
-                if dm[name]:
-                    y_bt = torch.einsum("ijn,jn->in", ctx["Dinv_t"][name],
-                                        ctx["bl_bt"][name])
-                    rows_t = bucket_up_t(bspec[name], ctx["Bt_s"][name], y_bt,
-                                         *win(data, name))
-                    bschur[pt] = bschur[pt] - onehot_scatter_add_t(
-                        cam_of(data, name, ps), rows_t, p.counts[pt])
-                elif bucketed:
-                    rows = bucket_up(bspec[name], ctx["Bp"][name],
-                                     seg_take(data, name, y[lt]))
-                    bschur[pt] = bschur[pt] - onehot_scatter_add(
-                        cam_of(data, name, ps), rows, p.counts[pt])
+                if bucketed:
+                    if dm[name]:
+                        y_bt = torch.einsum("ijn,jn->in", ctx["DinvT"][name],
+                                            ctx["bl_bt"][name])
+                    else:
+                        y_bt = seg_take(data, name, y[lt]).T
+                    rows_t = bucket_up_t(ctx["Bt"][name],
+                                         rows_of(data, name, y_bt))
+                    bschur[pt] = bschur[pt] - cam_sum_t(data, name, rows_t,
+                                                        p.counts[pt])
                 else:
                     vidx = data.edges[name].vidx
                     bschur[pt] = bschur[pt].index_add(
@@ -527,33 +525,17 @@ class ImplicitSchurSolver:
                          for t, v in diag_blocks.items()}
                 for name, ps, ls in obs_specs:
                     pt, lt = pt_of[name], lm_of[name]
-                    if dm[name]:
+                    if bucketed:
                         # C = B Dinv Bᵀ per row, dims-major
-                        Bts = ctx["Bt_s"][name]
+                        Bts = ctx["Bt"][name]
                         dp_ = Bts.shape[0]
-                        lo, m = win(data, name)
-                        Drows = bucket_broadcast_t(
-                            bspec[name], ctx["Dinv_t"][name])[..., lo:lo + m]
+                        Drows = rows_of(data, name, ctx["DinvT"][name])
                         T_ = torch.sum(Bts[:, :, None, :] * Drows[None],
                                        dim=1)
                         C_t = torch.sum(T_[:, None, :, :] * Bts[None], dim=2)
-                        sdiag[pt] = sdiag[pt] - onehot_scatter_add_t(
-                            cam_of(data, name, ps), C_t.reshape(dp_ * dp_, -1),
+                        sdiag[pt] = sdiag[pt] - cam_sum_t(
+                            data, name, C_t.reshape(dp_ * dp_, -1),
                             p.counts[pt]).reshape(-1, dp_, dp_)
-                    elif bucketed:
-                        counts, degrees, _ = bspec[name]
-                        Dp, off, k, rows = ctx["Dinv_perm"][name], 0, 0, []
-                        for n, d in zip(counts, degrees):
-                            Bb = ctx["Bp"][name][off:off + n * d]
-                            Bb = Bb.reshape((d, n) + Bb.shape[1:])
-                            Cb = torch.einsum("dnij,njk,dnlk->dnil",
-                                              Bb, Dp[k:k + n], Bb)
-                            rows.append(Cb.reshape((n * d,) + Cb.shape[2:]))
-                            off += n * d
-                            k += n
-                        sdiag[pt] = sdiag[pt] - onehot_scatter_add(
-                            cam_of(data, name, ps), torch.cat(rows),
-                            p.counts[pt])
                     else:
                         vidx = data.edges[name].vidx
                         Bn = ctx["B"][name]
@@ -590,25 +572,13 @@ class ImplicitSchurSolver:
                     if not sole_obs[name]:
                         continue
                     pt = pt_of[name]
-                    ids = cam_of(data, name, ps)
-                    if dm[name]:
-                        Bts = ctx["Bt_s"][name]
-                        u_t = onehot_gather_t(ids, vb[pt])
-                        t_ = bucket_down_t(bspec[name], Bts, u_t, data, name)
-                        s_t = torch.sum(ctx["Dinv_t"][name] * t_[None],
-                                        dim=1)
-                        rows_t = bucket_up_t(bspec[name], Bts, s_t,
-                                             *win(data, name))
-                        out[pt] = out[pt] - onehot_scatter_add_t(
-                            ids, rows_t, p.counts[pt])
-                        continue
-                    Bpt = ctx["Bpt"][name]
-                    u = onehot_gather(ids, vb[pt])
-                    t_ = bucket_down_t(bspec[name], Bpt, u.T, data, name)
-                    s_t = torch.sum(ctx["DinvT_perm"][name] * t_[None], dim=1)
-                    rows_t = bucket_up_t(bspec[name], Bpt, s_t)
-                    out[pt] = out[pt] - onehot_scatter_add(
-                        ids, rows_t.T.contiguous(), p.counts[pt])
+                    Bts = ctx["Bt"][name]
+                    t_ = bucket_down_t(Bts, gather_t(data, name, vb[pt]),
+                                       data, name)
+                    s_t = torch.sum(ctx["DinvT"][name] * t_[None], dim=1)
+                    rows_t = bucket_up_t(Bts, rows_of(data, name, s_t))
+                    out[pt] = out[pt] - cam_sum_t(data, name, rows_t,
+                                                  p.counts[pt])
             if not rem:
                 return out
             # the other batches: Bᵀv summed per landmark in natural order,
@@ -618,9 +588,11 @@ class ImplicitSchurSolver:
             for name, ps, ls in rem:
                 pt, lt = pt_of[name], lm_of[name]
                 if bucketed:
-                    u = onehot_gather(cam_of(data, name, ps), vb[pt])
-                    tl[lt] = seg_add(data, name, tl[lt], bucket_down(
-                        bspec[name], ctx["Bp"][name], u))
+                    z = torch.sum(ctx["Bt"][name]
+                                  * gather_t(data, name, vb[pt])[:, None],
+                                  dim=0)
+                    tl[lt] = seg_add(data, name, tl[lt],
+                                     slab_sums(data, name, z).T)
                 else:
                     vidx = data.edges[name].vidx
                     tl[lt].index_add_(0, vidx[:, ls], torch.einsum(
@@ -630,10 +602,10 @@ class ImplicitSchurSolver:
             for name, ps, ls in rem:
                 pt, lt = pt_of[name], lm_of[name]
                 if bucketed:
-                    rows = bucket_up(bspec[name], ctx["Bp"][name],
-                                     seg_take(data, name, s_[lt]))
-                    out[pt] = out[pt] - onehot_scatter_add(
-                        cam_of(data, name, ps), rows, p.counts[pt])
+                    rows_t = bucket_up_t(ctx["Bt"][name], rows_of(
+                        data, name, seg_take(data, name, s_[lt]).T))
+                    out[pt] = out[pt] - cam_sum_t(data, name, rows_t,
+                                                  p.counts[pt])
                 else:
                     vidx = data.edges[name].vidx
                     out[pt] = out[pt].index_add(0, vidx[:, ps], torch.einsum(
@@ -669,18 +641,20 @@ class ImplicitSchurSolver:
             for name, ps, ls in obs_specs:
                 pt, lt = pt_of[name], lm_of[name]
                 if dm[name]:
-                    u_t = onehot_gather_t(cam_of(data, name, ps), dxp[pt])
-                    t_ = bucket_down_t(bspec[name], ctx["Bt_s"][name], u_t,
+                    t_ = bucket_down_t(ctx["Bt"][name],
+                                       gather_t(data, name, dxp[pt]),
                                        data, name)
-                    dxl_t = torch.einsum("ijn,jn->in", ctx["Dinv_t"][name],
+                    dxl_t = torch.einsum("ijn,jn->in", ctx["DinvT"][name],
                                          ctx["bl_bt"][name] - t_)
                     d = p.vertex_types[lt].tangent_dim
                     dxl[lt] = seg_set(data, name, torch.zeros(
                         (p.counts[lt], d), dtype=dtype, device=dev), dxl_t.T)
                 elif bucketed:
-                    u = onehot_gather(cam_of(data, name, ps), dxp[pt])
-                    wl[lt] = seg_add(data, name, wl[lt], bucket_down(
-                        bspec[name], ctx["Bp"][name], u))
+                    z = torch.sum(ctx["Bt"][name]
+                                  * gather_t(data, name, dxp[pt])[:, None],
+                                  dim=0)
+                    wl[lt] = seg_add(data, name, wl[lt],
+                                     slab_sums(data, name, z).T)
                 else:
                     vidx = data.edges[name].vidx
                     wl[lt] = wl[lt].index_add(0, vidx[:, ls], torch.einsum(
@@ -700,6 +674,7 @@ class ImplicitSchurSolver:
             form = "dm"
         else:
             form = "runtime_bucketed" if not any(pre.values()) else "bucketed"
+        self._rows_here = rows_here
         return self._finish(p, dict(
             landmark_system=landmark_system, reduced_rhs=reduced_rhs,
             preconditioner=preconditioner, cg=cg,
@@ -939,13 +914,6 @@ class ImplicitSchurSolver:
             """One solve: ``(dx, stats)`` with the CG iteration count and
             the final residual (the reference's iterationsLinearSolver
             statistic, ``g2o/core/batch_stats.h:59``)."""
-            if data.group is not None and layout["form"] not in (
-                    "rows", "dm", "general"):
-                raise NotImplementedError(
-                    f"ImplicitSchurSolver: the {layout['form']!r} layout "
-                    "on sharded data (ROADMAP A.8.5); the 'rows' and "
-                    "general layouts and bucket_landmarks=True problems "
-                    "run sharded")
             ctx = parts["landmark_system"](data, lin, lam, aux)
             bschur = parts["reduced_rhs"](ctx, data, lin, aux)
             diag_blocks, minv = parts["preconditioner"](ctx, data, lin, lam,

@@ -158,3 +158,27 @@ def bucket_broadcast(plan: BucketPlan, seg_vals):
             (n * d,) + tuple(v.shape[1:])))
         off += n
     return torch.cat(out, dim=0)
+
+
+def slab_sum_t(counts, degrees, z):
+    """Per-segment sums of DIMS-MAJOR slab rows (edge axis last): ``(...,
+    n_rows)`` -> ``(..., S_used)`` in bucket order — a ``(..., deg, n)``
+    view of each degree-major slab summed over deg."""
+    out, off = [], 0
+    for n, d in zip(counts, degrees):
+        out.append(z[..., off:off + n * d].reshape(
+            z.shape[:-1] + (d, n)).sum(dim=-2))
+        off += n * d
+    return torch.cat(out, dim=-1)
+
+
+def slab_broadcast_t(counts, degrees, x):
+    """Per-segment values ``(..., S_used)`` in bucket order -> every slab
+    row ``(..., n_rows)``, dims-major: one expand per slab."""
+    parts, off = [], 0
+    for n, d in zip(counts, degrees):
+        xb = x[..., off:off + n]
+        parts.append(xb[..., None, :].expand(
+            xb.shape[:-1] + (d, n)).reshape(xb.shape[:-1] + (n * d,)))
+        off += n
+    return torch.cat(parts, dim=-1)

@@ -20,10 +20,13 @@ Cases (``--case``, comma-separated):
 * ``tests``: the small scenes of the JAX package's sharding tests, one
   sharded step (or run) each, every solver, float64 (the sphere read from
   ``--g2o`` when given);
-* ``sphere`` (``--g2o`` file), ``manhattan`` (``--n-poses``), ``schur`` and
-  ``implicit`` (``--bal`` file): the full-size runs of ``chip_smoke.py``,
-  each sharded result held against the same computation unsharded in rank
-  0, with ms per λ-trial, all-reduce counts and kernel launches.
+* ``sphere`` (``--g2o`` file), ``manhattan`` (``--n-poses``), ``schur``,
+  ``implicit``, ``runtime`` and ``cgls`` (``--bal`` file), ``mixed_sba``
+  (``--sba-scene``): the full-size runs of ``chip_smoke.py``, each sharded
+  result held against the same computation unsharded in rank 0, with ms
+  per λ-trial, all-reduce counts and kernel launches (``runtime``: the
+  implicit runtime-bucketed layout; ``cgls``: CGLS on the bucketed
+  layout; ``mixed_sba``: the implicit multi-observer form).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -50,6 +54,9 @@ from g2o_tpu_torch.sim.generators import (create_ba_scene, create_manhattan,
 
 F64 = torch.float64
 SPHERE_LM_ITERS = 5
+# the tests case's mixed mono/stereo scene (``mixed_sba_graph``)
+MIXED_TEST_SCENE = dict(n_cameras=6, n_points=80, pixel_noise=0.5,
+                        point_noise=0.2, seed=3)
 
 
 def _lists(est):
@@ -97,13 +104,35 @@ def _reduce_facts(trials):
             "allreduce_bytes_per_call": st["bytes"] / max(st["calls"], 1)}
 
 
-def _solve_or_raise(fn):
-    """``fn()``'s value, or ``{"raised": message}`` when it raises
-    ``NotImplementedError``."""
-    try:
-        return fn()
-    except NotImplementedError as exc:
-        return {"raised": str(exc)}
+def mixed_sba_graph(base, truth, graph_cls, sba, bf=75.0):
+    """ORB-SLAM's mixed mono/stereo map on the points and observations of a
+    ``create_ba_scene`` graph ``base`` (either package's: ``graph_cls`` and
+    the ``sba`` types module are that package's): stereo edges (f, f, cx,
+    cy, bf) from even cameras, with u_right = u - bf/z of the true depth
+    (ba_demo's cameras: R = I, t_z = 0), mono edges (f, f, cx, cy) from
+    odd ones; every point marginalized, one point type observed by two edge
+    types."""
+    f, cx, cy = base.parameter(sba.CAM_PARAM_ID)[:3]
+    g = graph_cls()
+    g.add_parameter(1, [f, f, cx, cy])
+    g.add_parameter(2, [f, f, cx, cy, bf])
+    verts = base.vertices()
+    for vid, v in sorted(verts.items()):
+        if vid not in truth:
+            g.add_vertex(vid, v.vtype, v.estimate, fixed=v.fixed)
+    for vid in truth:
+        g.add_vertex(vid, sba.VertexPointXYZ, verts[vid].estimate,
+                     marginalized=True)
+    for e in base.edges():
+        (v, i), m = e.vids, e.measurement
+        if i % 2 == 0:
+            g.add_edge(sba.EdgeStereoSE3ProjectXYZ, [v, i],
+                       [m[0], m[1], m[0] - bf / truth[v][2]], np.eye(3),
+                       param_id=2)
+        else:
+            g.add_edge(sba.EdgeSE3ProjectXYZ, [v, i], m, np.eye(2),
+                       param_id=1)
+    return g
 
 
 # --------------------------------------------------------------------- #
@@ -136,7 +165,10 @@ def _step(p, solver, mesh, lam, data=None):
     step = make_fused_step(p, solver, donate=False)
     data = shard_problem_data(p.data, mesh) if data is None else data
     est, chi, _ = step(data, replicate_estimates(p.estimates, mesh), lam)
-    return {"estimates": _lists(est), "chi2": float(chi)}
+    out = {"estimates": _lists(est), "chi2": float(chi)}
+    if hasattr(solver, "_layout"):
+        out["form"] = solver._layout["form"]
+    return out
 
 
 def case_tests(args, world):
@@ -171,8 +203,8 @@ def case_tests(args, world):
         "estimates": _lists(p.estimates)}
     p = g.compile(pad_edges_to_multiple=world, bucket_landmarks=True,
                   dtype=F64, device=dev)
-    out["cgls_bucketed"] = _solve_or_raise(lambda: _step(
-        p, g2o.CGLSSolver(max_iter=200, eta=1e-12), mesh, 1e-3))
+    out["cgls_bucketed"] = _step(
+        p, g2o.CGLSSolver(max_iter=200, eta=1e-12), mesh, 1e-3)
     g2, truth = create_ba_scene(n_cameras=6, n_points=80, pixel_noise=0.5,
                                 point_noise=0.2, seed=3)
     for j, vid in enumerate(truth):
@@ -187,9 +219,17 @@ def case_tests(args, world):
                               {"layout": "bucketed"})):
         p = g.compile(pad_edges_to_multiple=world, bucket_landmarks=bucket,
                       dtype=F64, device=dev)
-        out[name] = _solve_or_raise(lambda: _step(
+        out[name] = _step(
             p, g2o.ImplicitSchurSolver(max_iter=30, tol=1e-10, **kw), mesh,
-            1e-3))
+            1e-3)
+    from g2o_tpu_torch.core.graph import Graph
+    from g2o_tpu_torch.types import sba
+
+    gm = mixed_sba_graph(*create_ba_scene(**MIXED_TEST_SCENE), Graph, sba)
+    p = gm.compile(pad_edges_to_multiple=world, bucket_landmarks=True,
+                   dtype=F64, device=dev)
+    out["implicit_multi_observer"] = _step(
+        p, g2o.ImplicitSchurSolver(max_iter=150, tol=1e-10), mesh, 1e-3)
 
     g = create_manhattan(n_poses=64, seed=21)
     p = g.compile(pad_edges_to_multiple=world, dtype=F64, device=dev)
@@ -219,8 +259,7 @@ def case_tests(args, world):
                "sparse_chol": g2o.SparseCholeskySolver,
                "cgls": lambda: g2o.CGLSSolver(max_iter=200, eta=1e-12)}
     for name, make in solvers.items():
-        out[f"sphere_{name}"] = _solve_or_raise(
-            lambda: _step(p, make(), mesh, 1e-3))
+        out[f"sphere_{name}"] = _step(p, make(), mesh, 1e-3)
     est0 = replicate_estimates(p.estimates, mesh)
     p.data = shard_problem_data(p.data, mesh)
     p.estimates = dict(est0)
@@ -261,15 +300,21 @@ def _lm_run(args, p, est0, solver, iters):
     p.estimates = {t: v.clone() for t, v in est0.items()}
     g2o.optimize_fused(p, solver, 1)
     p.estimates = {t: v.clone() for t, v in est0.items()}
+    counted = hasattr(solver, "solves")   # CGLS counts its CG iterations
+    if counted:
+        solver.cg_iterations = solver.solves = 0
     _sync(args.device)
     _zero_counts()
     res = g2o.optimize_fused(p, solver, iters)
     _sync(args.device)
     trials = sum(res["trials_per_iteration"])
+    cg = (solver.cg_iterations / max(solver.solves, 1) if counted
+          else sum(res["cg_per_iteration"]) / max(trials, 1))
     return {"iterations": res["iterations"], "trials": trials,
             "chi2_first": res["chi2_per_iteration"][0],
             "chi2_final": res["chi2_final"],
             "cg_per_iteration": res["cg_per_iteration"],
+            "cg_per_solve": cg,
             "ms_per_trial": res["wall_s"] * 1e3 / max(trials, 1),
             **_reduce_facts(trials)}, _counts()
 
@@ -444,9 +489,141 @@ def case_implicit(args, world):
     return out, launches
 
 
+def _bucketed_lm(args, rank, mesh, p, make_solver, iters):
+    """``iters`` float32 LM iterations of ``make_solver()``: unsharded on
+    rank 0, then sharded.  ``({"lm_unsharded", "lm_sharded"}, this rank's
+    launches of the sharded run)``."""
+    est0 = {t: v.clone() for t, v in p.estimates.items()}
+    ref = _reference(rank, lambda: _lm_run(args, p, est0, make_solver(),
+                                           iters)[0])
+    p.data = shard_problem_data(p.data, mesh)
+    res, launches = _lm_run(args, p, replicate_estimates(est0, mesh),
+                            make_solver(), iters)
+    out = {"lm_sharded": res}
+    if rank == 0:
+        out["lm_unsharded"] = ref
+    return out, launches
+
+
+def _step_pair(p, solver, mesh, rank, lam=1e-3):
+    """One float64 fused step unsharded (rank 0) and sharded, each with the
+    chi2 at the stepped estimates: the facts on rank 0, and the sharded
+    data."""
+    step = make_fused_step(p, solver)
+
+    def run(data, est):
+        e, _, _ = step(data, est, lam)
+        return e, p.chi2_fn(data, e)[0]
+
+    ref = _reference(rank, lambda: run(p.data, p.estimates))
+    data = shard_problem_data(p.data, mesh)
+    e1, c1 = run(data, replicate_estimates(p.estimates, mesh))
+    facts = {"form": solver._layout["form"]} if hasattr(solver,
+                                                        "_layout") else {}
+    if rank == 0:
+        facts.update(max_rel_diff=_max_diff(e1, ref[0], rel=True),
+                     chi2_rel_diff=abs(float(c1) - float(ref[1]))
+                     / abs(float(ref[1])))
+    return facts, data
+
+
+def _save_ids(args, rank, tag, body):
+    """Rank 0's kernel inputs of a path, for ``chip_smoke.py`` to hold and
+    time the kernels at one rank's shapes."""
+    if rank == 0 and args.out:
+        torch.save(body, f"{args.out}.{tag}.pt")
+
+
+def case_runtime(args, world):
+    """ladybug built without ``bucket_landmarks``, ``ImplicitSchurSolver(
+    layout="bucketed")`` (the runtime-bucketed form, K7/K8): one float64
+    step against the unsharded step; ``--iters`` float32 LM iterations,
+    unsharded and sharded; rank 0's held camera ids saved to
+    ``--out.k78.pt``."""
+    rank = dist.get_rank()
+    mesh = make_mesh()
+    kw = dict(max_iter=100, tol=1e-2, precond="jacobi", layout="bucketed")
+    p = _load_bal(args, world, F64)
+    solver = g2o.ImplicitSchurSolver(**kw).setup(p)
+    out, data = _step_pair(p, solver, mesh, rank)
+    name, = p.edge_types
+    _save_ids(args, rank, "k78", {
+        "ids": solver._rows_here(data, name)[2],
+        "S": p.counts["VERTEX_CAMERA_BAL"], "widths": (9, 81)})
+    p = _load_bal(args, world, torch.float32)
+    lm, launches = _bucketed_lm(args, rank, mesh, p,
+                                lambda: g2o.ImplicitSchurSolver(**kw),
+                                args.iters)
+    out.update(lm)
+    return out, {"sharded_runtime_ladybug": launches}
+
+
+def case_cgls(args, world):
+    """ladybug with ``bucket_landmarks=True``, ``CGLSSolver`` (K5/K6 on the
+    camera slot): one float64 solve against the unsharded solve;
+    ``--iters`` float32 LM iterations, unsharded and sharded; rank 0's
+    camera ids saved to ``--out.k56c.pt``."""
+    rank = dist.get_rank()
+    mesh = make_mesh()
+    kw = dict(max_iter=200, eta=1e-4)
+    p = _load_bal(args, world, F64, bucket=True)
+    solver = g2o.CGLSSolver(**kw).setup(p)
+    ref = _reference(rank, lambda: solver.solve(
+        p.data, p.linearize_fn(p.data, p.estimates), 1e-3))
+    data = shard_problem_data(p.data, mesh)
+    dx = solver.solve(data, p.linearize_fn(data, p.estimates), 1e-3)
+    out = {}
+    if rank == 0:
+        out["dx_rel_diff"] = float((dx - ref).norm() / ref.norm())
+    (name, spec), = p.bucket_specs.items()
+    _save_ids(args, rank, "k56c", {
+        "ids": data.plans[name]["ids32"][spec.pose_slot].contiguous(),
+        "S": p.counts["VERTEX_CAMERA_BAL"]})
+    p = _load_bal(args, world, torch.float32, bucket=True)
+    lm, launches = _bucketed_lm(args, rank, mesh, p,
+                                lambda: g2o.CGLSSolver(**kw), args.iters)
+    out.update(lm)
+    return out, {"sharded_cgls_ladybug": launches}
+
+
+def case_mixed_sba(args, world):
+    """The mixed mono/stereo map (:func:`mixed_sba_graph`) on
+    ``create_ba_scene(*--sba-scene)`` with ``bucket_landmarks=True``,
+    ``ImplicitSchurSolver`` (the multi-observer form, K7/K8): one float64
+    step against the unsharded step; ``--sba-iters`` float32 LM
+    iterations, unsharded and sharded; rank 0's held camera ids per batch
+    saved to ``--out.k78m.pt``."""
+    from g2o_tpu_torch.core.graph import Graph
+    from g2o_tpu_torch.types import sba
+
+    rank = dist.get_rank()
+    mesh = make_mesh()
+    nc, npt, seed = (int(x) for x in args.sba_scene.split(","))
+    g = mixed_sba_graph(*create_ba_scene(n_cameras=nc, n_points=npt,
+                                         seed=seed), Graph, sba)
+    kw = dict(max_iter=150, tol=1e-8)
+    p = g.compile(pad_edges_to_multiple=world, bucket_landmarks=True,
+                  dtype=F64, device=args.device)
+    solver = g2o.ImplicitSchurSolver(**kw).setup(p)
+    out, data = _step_pair(p, solver, mesh, rank)
+    _save_ids(args, rank, "k78m", {
+        "ids": {name: solver._rows_here(data, name)[2]
+                for name in p.bucket_specs},
+        "S": p.counts["VERTEX_SE3:EXPMAP"], "widths": (6, 36)})
+    p = g.compile(pad_edges_to_multiple=world, bucket_landmarks=True,
+                  dtype=torch.float32, device=args.device)
+    lm, launches = _bucketed_lm(args, rank, mesh, p,
+                                lambda: g2o.ImplicitSchurSolver(**kw),
+                                args.sba_iters)
+    out.update(lm)
+    return out, {"sharded_mixed_sba": launches}
+
+
 CASES = {"multiprocess": case_multiprocess, "tests": case_tests,
          "sphere": case_sphere, "manhattan": case_manhattan,
-         "schur": case_schur, "implicit": case_implicit}
+         "schur": case_schur, "implicit": case_implicit,
+         "runtime": case_runtime, "cgls": case_cgls,
+         "mixed_sba": case_mixed_sba}
 
 
 def main(argv=None):
@@ -459,6 +636,11 @@ def main(argv=None):
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"))
     ap.add_argument("--case", default="multiprocess")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--sba-iters", type=int, default=15,
+                    help="the mixed_sba case's LM iterations")
+    ap.add_argument("--sba-scene", default="49,7000,0",
+                    help="the mixed_sba case's create_ba_scene n_cameras, "
+                    "n_points, seed")
     ap.add_argument("--n-poses", type=int, default=200)
     ap.add_argument("--g2o", default="", help="the sphere case's .g2o file")
     ap.add_argument("--bal", default="", help="the BA cases' BAL file")

@@ -1,7 +1,8 @@
 """Port parity on the manhattan path: ``PCGSolver``'s ``every_k`` and
-``frozen`` preconditioner modes, ``optimize_fused_gn``, ``GaussNewton`` and
-the hybrid ``HostCholSolver`` / ``optimize_gn_host``, against the JAX
-package, float64 on the CPU.
+``frozen`` preconditioner modes, ``optimize_fused_gn``, the whole-run
+functions ``make_lm_run`` / ``make_gn_run`` (their tuples and padded
+histories), ``GaussNewton`` and the hybrid ``HostCholSolver`` /
+``optimize_gn_host``, against the JAX package, float64 on the CPU.
 
 The graph is ``create_manhattan(n_poses=300, seed=0)``.  With
 ``chunk_size=8`` its chunk2 coarse level has 38 chunks × 3 = 114 columns,
@@ -14,6 +15,7 @@ exactly; a host Cholesky step's dx to rtol 1e-10."""
 
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,8 @@ import g2o_tpu.types  # noqa: F401
 import g2o_tpu_torch as tg2o
 from g2o_tpu.core.graph import Graph as JGraph
 from g2o_tpu.core.lm_fused import optimize_fused as j_optimize_fused
+from g2o_tpu.core.lm_fused import make_gn_run as j_make_gn_run
+from g2o_tpu.core.lm_fused import make_lm_run as j_make_lm_run
 from g2o_tpu.core.lm_fused import optimize_fused_gn as j_optimize_fused_gn
 from g2o_tpu.core.optimizer import GaussNewton as JGaussNewton
 from g2o_tpu.core.optimizer import SparseOptimizer as JSparseOptimizer
@@ -30,6 +34,8 @@ from g2o_tpu.core.solvers.host_chol import HostCholSolver as JHostChol
 from g2o_tpu.core.solvers.host_chol import optimize_gn_host as j_gn_host
 from g2o_tpu.sim.generators import create_manhattan
 from g2o_tpu.types import slam2d as jslam2d
+from g2o_tpu_torch.core.lm_fused import make_gn_run as t_make_gn_run
+from g2o_tpu_torch.core.lm_fused import make_lm_run as t_make_lm_run
 from g2o_tpu_torch.core.solvers.pcg import PCGSolver as TPCG
 from g2o_tpu_torch.types import slam2d as tslam2d
 from test_torch_problem import port_problem
@@ -145,6 +151,70 @@ def test_fused_gn_matches_jax(graph):
               carry_factor=0.01, matvec_precision="highest")
     _assert_same_run(tg2o.optimize_fused_gn(tp, TPCG(**kw), 6),
                      j_optimize_fused_gn(jp, JPCG(**kw), 6))
+
+
+def _runner_state(solver, dtype):
+    """The solver state a JAX runner is called with (``optimize_fused``'s
+    choice): the solver's ``state0``, else a placeholder zero."""
+    st = getattr(solver, "state0", None)
+    if st is None or not hasattr(solver, "_solve_state_fn"):
+        st = jnp.zeros((), dtype)
+    return st
+
+
+def _assert_same_histories(tout, jout, n_hist):
+    """The padded histories and the final chi2 of a run function, the last
+    ``n_hist`` entries of its tuple."""
+    for got, want in zip(tout[-n_hist - 1:-1], jout[-n_hist - 1:-1]):
+        got, want = got.cpu().numpy(), np.asarray(want)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got, want, rtol=RTOL)
+    np.testing.assert_allclose(tout[-1], float(jout[-1]), rtol=RTOL)
+
+
+def test_make_lm_run_matches_jax(graph):
+    """``make_lm_run``: the JAX package's tuple (estimates, λ, ν,
+    iterations, the three histories padded to ``max_iters``, final chi2)
+    from one call, with the λ₀ = τ·max|H_jj| sentinel."""
+    jp, tp = _pair(graph)
+    js, ts = JPCG(**_fast()).setup(jp), TPCG(**_fast()).setup(tp)
+    jout = j_make_lm_run(jp, js, max_iters=12)(
+        jp.data, dict(jp.estimates), jnp.asarray(-1e-5, jp.dtype),
+        jnp.asarray(2.0, jp.dtype), jnp.asarray(8, jnp.int32), js.aux,
+        _runner_state(js, jp.dtype))
+    tout = t_make_lm_run(tp, ts, max_iters=12)(
+        tp.data, tp.estimates, -1e-5, 2.0, 8, getattr(ts, "aux", ()),
+        getattr(ts, "state0", None))
+    assert tout[3] == int(jout[3]) == 8
+    np.testing.assert_allclose(tout[1], float(jout[1]), rtol=RTOL)
+    assert tout[2] == float(jout[2])
+    _assert_same_histories(tout, jout, 3)
+    for t in jout[0]:
+        np.testing.assert_allclose(tout[0][t].numpy(), np.asarray(jout[0][t]),
+                                   rtol=RTOL, atol=1e-9)
+
+
+def test_make_gn_run_matches_jax(graph):
+    """``make_gn_run``: the JAX package's tuple (estimates, iterations, the
+    chi2 and CG histories padded to ``max_iters``, final chi2), bench.py's
+    polish solver after 5 LM iterations."""
+    jp, tp = _pair(graph)
+    j_optimize_fused(jp, JPCG(**_fast()), 5)
+    tg2o.optimize_fused(tp, TPCG(**_fast()), 5)
+    kw = dict(max_iter=128, tol=1e-6, precond="chunk2", chunk_size=16,
+              carry_factor=0.01, matvec_precision="highest")
+    js, ts = JPCG(**kw).setup(jp), TPCG(**kw).setup(tp)
+    jout = j_make_gn_run(jp, js, max_iters=10)(
+        jp.data, dict(jp.estimates), jnp.asarray(4, jnp.int32), js.aux,
+        _runner_state(js, jp.dtype))
+    tout = t_make_gn_run(tp, ts, max_iters=10)(
+        tp.data, tp.estimates, 4, getattr(ts, "aux", ()),
+        getattr(ts, "state0", None))
+    assert tout[1] == int(jout[1]) == 4
+    _assert_same_histories(tout, jout, 2)
+    for t in jout[0]:
+        np.testing.assert_allclose(tout[0][t].numpy(), np.asarray(jout[0][t]),
+                                   rtol=RTOL, atol=1e-9)
 
 
 def test_gauss_newton_optimizer_matches_jax(graph):

@@ -20,6 +20,11 @@ knobs of the port against the JAX package, on the CPU.
 * ``hvp``: float64 against float32 within 1e-4 of the scale (the JAX
   test's bar), and the float64 product against the JAX package's to rtol
   1e-9.
+* Fault C.7, the mixed ``SupernodalCholeskySolver``: on
+  ``create_manhattan(300, seed=0)`` both packages' first steps within 1e-3
+  of the float64 dense step; on ``create_manhattan(3500, seed=0)``, where
+  the JAX package's Gauss-Newton run stops at a non-finite chi2, the
+  port's mixed run reaches the float64 chi2 within 1e-4 in 12 iterations.
 """
 
 import jax.numpy as jnp
@@ -31,6 +36,7 @@ import g2o_tpu.types  # noqa: F401
 import g2o_tpu_torch as tg2o
 from g2o_tpu.core.lm_fused import optimize_fused_gn as j_optimize_fused_gn
 from g2o_tpu.core.solvers import DenseSolver as JDense
+from g2o_tpu.core.solvers import SupernodalCholeskySolver as JSupernodal
 from g2o_tpu.sim import generators as jgen
 from g2o_tpu_torch.sim import generators as tgen
 
@@ -175,3 +181,45 @@ def test_hvp_f64_broadcast_matches_einsum_form():
                               jnp.asarray(v)))
     np.testing.assert_allclose(h64, hj, rtol=1e-9,
                                atol=1e-9 * np.abs(hj).max())
+
+
+def test_mixed_supernodal_first_step_c7():
+    """Fault C.7: the float32 supernodal solve of a mixed manhattan
+    problem's first linearization.  Both packages' steps (the factor, the
+    sweeps and one refinement sweep) land within 1e-3 of the float64 dense
+    step, the same accuracy class: the two packages run one algorithm and
+    part only by float32 rounding (ROADMAP C.7)."""
+    jp = jgen.create_manhattan(n_poses=300, seed=0).compile(
+        dtype=jnp.float32, state_dtype=jnp.float64)
+    j64 = jgen.create_manhattan(n_poses=300, seed=0).compile(
+        dtype=jnp.float64)
+    ref = np.asarray(JDense().setup(j64).solve(
+        j64.data, j64.linearize_jit(j64.data, j64.estimates), 0.0))
+    dx_j = np.asarray(JSupernodal().setup(jp).solve(
+        jp.data, jp.linearize_jit(jp.data, jp.estimates), 0.0))
+    tp = _cpu(tgen.create_manhattan(n_poses=300, seed=0), dtype=F32,
+              state_dtype=F64)
+    s = tg2o.SupernodalCholeskySolver().setup(tp)
+    dx_t = s.solve(tp.data, tp.linearize_fn(tp.data, tp.estimates), 0.0)
+    assert dx_t.dtype == F32
+    for dx in (dx_j, dx_t.numpy()):
+        rel = np.linalg.norm(dx.astype(np.float64) - ref) / np.linalg.norm(ref)
+        assert rel <= 1e-3, rel
+
+
+def test_mixed_supernodal_gn_reaches_f64_chi2_c7():
+    """Fault C.7 where the JAX package stops: ``create_manhattan(3500,
+    seed=0)`` compiled ``dtype=float32, state_dtype=float64`` with
+    ``SupernodalCholeskySolver`` and ``optimize_fused_gn``.  The port's
+    mixed run reaches the float64 run's chi2 within 1e-4 (the JAX test's
+    bar) in 12 iterations; the JAX package's stops after 2 at a non-finite
+    chi2, its factor of the third linearization meeting a non-positive
+    pivot that the port's factor of the same linearization does not."""
+    g = tgen.create_manhattan(n_poses=3500, seed=0)
+    c64 = tg2o.optimize_fused_gn(_cpu(g, dtype=F64),
+                                 tg2o.SupernodalCholeskySolver(),
+                                 8)["chi2_final"]
+    res = tg2o.optimize_fused_gn(_cpu(g, dtype=F32, state_dtype=F64),
+                                 tg2o.SupernodalCholeskySolver(), 12)
+    assert res["iterations"] == 12
+    assert abs(res["chi2_final"] - c64) <= 1e-4 * c64

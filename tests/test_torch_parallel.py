@@ -22,10 +22,13 @@ shard (Dense, supernodal and sparse Cholesky, CGLS, the host Cholesky,
 Dogleg) and the structure-only refinement are held to the sphere step's
 ``atol=1e-8`` (chi2 ``rel=1e-10``; Dogleg's after 3 iterations
 ``rel=1e-9``) against the port's own unsharded runs and, the direct
-steps, against the JAX package's dense step; CGLS on landmark-bucketed
-batches and the implicit runtime-bucketed layout raise
-``NotImplementedError`` on sharded data.  A world of one process gives
-the unsharded results bit for bit.
+steps, against the JAX package's dense step.  The landmark-bucketed
+layouts — CGLS on a ``bucket_landmarks=True`` problem, the implicit
+runtime-bucketed layout and the implicit multi-observer form (mono and
+stereo edges on one point type) — are held to the bucketed bars
+(``rtol=1e-8, atol=1e-10``, chi2 ``rtol=1e-12``) against the JAX
+package's unsharded step in the same layout and the port's.  A world of
+one process gives the unsharded results bit for bit.
 
 ``initialize_distributed`` raises when an explicit launch fails; the JAX
 package's (``g2o_tpu/parallel/multihost.py:57-61``) swallows every
@@ -52,14 +55,20 @@ from g2o_tpu import parallel as jparallel
 from g2o_tpu.core.lm_fused import optimize_fused as j_optimize_fused
 from g2o_tpu.core.solvers import DenseSolver as JDense
 from g2o_tpu.core.solvers import PCGSolver as JPCG
+from g2o_tpu.core.graph import Graph as JGraph
 from g2o_tpu.core.solvers import SchurSolver as JSchur
+from g2o_tpu.core.solvers.cgls import CGLSSolver as JCGLS
 from g2o_tpu.core.solvers.schur_implicit import ImplicitSchurSolver as JImpl
 from g2o_tpu.io import g2o_format as jio
 from g2o_tpu.sim import generators as jgen
+from g2o_tpu.types import sba as jsba
 from g2o_tpu_torch import parallel as tparallel
+from g2o_tpu_torch.core.graph import Graph as TGraph
 from g2o_tpu_torch.core.structure_only import structure_only_refine
 from g2o_tpu_torch.io import g2o_format as tio
+from g2o_tpu_torch.parallel import worker as tworker
 from g2o_tpu_torch.sim import generators as tgen
+from g2o_tpu_torch.types import sba as tsba
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -84,6 +93,8 @@ def _free_port():
 
 
 SPHERE = dict(nodes_per_level=8, laps=3, radius=10.0, seed=4)
+# the BA scene of the JAX package's bucketed sharding test
+BA = dict(n_cameras=6, n_points=80, pixel_noise=0.5, point_noise=0.2, seed=3)
 
 
 @pytest.fixture(scope="module")
@@ -236,7 +247,43 @@ def test_sharded_implicit_general_path_matches_unsharded(sharded):
 
 
 def test_sharded_runtime_bucketed_layout_raises(sharded):
-    assert "A.8.5" in sharded()["implicit_runtime"]["raised"]
+    """The runtime-bucketed layout (``layout="bucketed"`` on a problem built
+    without ``bucket_landmarks``; this layout raised on sharded data before
+    it ran there) against the JAX package's unsharded step in the same
+    layout and the port's, with the bars of ``test_sharded_schur.py``'s
+    bucketed case."""
+    jp = jgen.create_ba_scene(**BA)[0].compile(pad_edges_to_multiple=WORLD)
+    e_j, c_j = _jax_step(jp, JImpl(max_iter=30, tol=1e-10,
+                                   layout="bucketed"), 1e-3)
+    tp = _cpu(tgen.create_ba_scene(**BA)[0], pad_edges_to_multiple=WORLD)
+    solver = tg2o.ImplicitSchurSolver(max_iter=30, tol=1e-10,
+                                      layout="bucketed")
+    e_t, c_t = _port_step(tp, solver, 1e-3)
+    got = sharded()["implicit_runtime"]
+    assert got["form"] == solver._layout["form"] == "runtime_bucketed"
+    for e, c in ((e_j, c_j), (e_t, c_t)):
+        np.testing.assert_allclose(got["chi2"], c, rtol=1e-12)
+        _close(got["estimates"], e, rtol=1e-8, atol=1e-10)
+
+
+def test_sharded_multi_observer_matches_unsharded(sharded):
+    """One landmark type observed by mono and stereo edges
+    (``bucket_landmarks=True``): the multi-observer form's sharded step
+    against the JAX package's and the port's unsharded steps."""
+    jp = tworker.mixed_sba_graph(*jgen.create_ba_scene(
+        **tworker.MIXED_TEST_SCENE), JGraph, jsba).compile(
+        bucket_landmarks=True, pad_edges_to_multiple=WORLD)
+    e_j, c_j = _jax_step(jp, JImpl(max_iter=150, tol=1e-10), 1e-3)
+    tp = _cpu(tworker.mixed_sba_graph(*tgen.create_ba_scene(
+        **tworker.MIXED_TEST_SCENE), TGraph, tsba), bucket_landmarks=True,
+        pad_edges_to_multiple=WORLD)
+    solver = tg2o.ImplicitSchurSolver(max_iter=150, tol=1e-10)
+    e_t, c_t = _port_step(tp, solver, 1e-3)
+    got = sharded()["implicit_multi_observer"]
+    assert got["form"] == solver._layout["form"] == "multi_observer"
+    for e, c in ((e_j, c_j), (e_t, c_t)):
+        np.testing.assert_allclose(got["chi2"], c, rtol=1e-12)
+        _close(got["estimates"], e, rtol=1e-8, atol=1e-10)
 
 
 def test_multihost_helpers_global_mesh_step(sharded):
@@ -348,7 +395,22 @@ def test_sharded_structure_only_matches_unsharded(sharded):
 
 
 def test_sharded_bucketed_cgls_raises(sharded):
-    assert "A.8.5" in sharded()["cgls_bucketed"]["raised"]
+    """CGLS on a ``bucket_landmarks=True`` problem (which raised on sharded
+    data before it ran there): the sharded step against the JAX package's
+    unsharded ``CGLSSolver`` step and the port's, with the bucketed bars
+    of the implicit solver's cases."""
+    kw = dict(max_iter=200, eta=1e-12)
+    jp = jgen.create_ba_scene(**BA)[0].compile(
+        bucket_landmarks=True, pad_edges_to_multiple=WORLD)
+    e_j, c_j = _jax_step(jp, JCGLS(**kw), 1e-3)
+    tp = _cpu(tgen.create_ba_scene(**BA)[0], bucket_landmarks=True,
+              pad_edges_to_multiple=WORLD)
+    assert tp.bucket_specs
+    e_t, c_t = _port_step(tp, tg2o.CGLSSolver(**kw), 1e-3)
+    got = sharded()["cgls_bucketed"]
+    for e, c in ((e_j, c_j), (e_t, c_t)):
+        np.testing.assert_allclose(got["chi2"], c, rtol=1e-12)
+        _close(got["estimates"], e, rtol=1e-8, atol=1e-10)
 
 
 def test_two_process_distributed_matches_single(sharded):
@@ -379,6 +441,39 @@ def no_group():
     yield
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("layout", ["runtime_bucketed", "multi_observer",
+                                    "cgls_bucketed"])
+def test_world_of_one_bucketed_layouts_are_bit_equal(no_group, layout):
+    """The bucketed layouts sharded over a world of one process (each
+    process's slab rows, its zero-padded slab buffers and one all-reduce
+    per sum) give the unsharded step bit for bit."""
+    tparallel.initialize_distributed(backend="gloo")
+    mesh = tparallel.make_mesh()
+    if layout == "multi_observer":
+        p = _cpu(tworker.mixed_sba_graph(*tgen.create_ba_scene(
+            **tworker.MIXED_TEST_SCENE), TGraph, tsba), bucket_landmarks=True)
+        solver = tg2o.ImplicitSchurSolver(max_iter=150, tol=1e-10)
+    elif layout == "runtime_bucketed":
+        p = _cpu(tgen.create_ba_scene(**BA)[0])
+        solver = tg2o.ImplicitSchurSolver(max_iter=30, tol=1e-10,
+                                          layout="bucketed")
+    else:
+        p = _cpu(tgen.create_ba_scene(**BA)[0], bucket_landmarks=True)
+        solver = tg2o.CGLSSolver(max_iter=200, eta=1e-12)
+    solver.setup(p)
+    if layout != "cgls_bucketed":
+        assert solver._layout["form"] == layout
+    step = tparallel.make_fused_step(p, solver)
+    e0, c0, _ = step(p.data, p.estimates, 1e-3)
+    data = tparallel.shard_problem_data(p.data, mesh)
+    assert data.group is not None
+    e1, c1, _ = step(data, tparallel.replicate_estimates(p.estimates, mesh),
+                     1e-3)
+    assert torch.equal(c0, c1)
+    for t in e0:
+        assert torch.equal(e0[t], e1[t]), t
 
 
 def test_initialize_distributed_raises_on_a_failed_launch(no_group):
