@@ -1,0 +1,2 @@
+"""The plain reference the benchmark judges the port against; imports
+torch alone."""
