@@ -36,6 +36,7 @@ import torch
 
 from g2o_tpu_torch.core.optimizer import (OptimizationAlgorithm,
                                           _max_abs_diag)
+from g2o_tpu_torch.utils.tictoc import span
 
 # per-solver-object cache token: ``id(solver)`` is NOT a safe key — CPython
 # reuses the id of a collected solver for the next allocation, so a cache
@@ -84,26 +85,31 @@ def make_lm_iteration(problem, solver, max_trials: int):
 
     def one_iteration(estimates, lam, ni, sstate, lin, data=None, aux=None):
         data = p.data if data is None else data
-        chi0 = float(lin.chi2_robust)
+        with span("read.chi2"):
+            chi0 = float(lin.chi2_robust)
         good, trials, cg = False, 0, 0
         est_out, chi_out, lin_out = estimates, chi0, lin
         while not good and trials < max_trials:
-            dx, sstate, n_cg = _solve(p, solver, lin, lam, sstate, data, aux)
-            cg += n_cg
-            cand = p.apply_update_fn(data, estimates, dx)
-            lin_cand = p.linearize_fn(data, cand)
-            chi_new = float(lin_cand.chi2_robust)
-            scale = float(torch.sum(dx * (lam * dx + lin.b))) + 1e-3
-            rho = (chi0 - chi_new) / scale
-            good = math.isfinite(chi_new) and rho > 0 and chi_new < chi0
-            trials += 1
-            if good:
-                lam *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-                ni = 2.0
-                est_out, chi_out, lin_out = cand, chi_new, lin_cand
-            else:
-                lam *= ni
-                ni *= 2.0
+            with span("lm.trial"):
+                dx, sstate, n_cg = _solve(p, solver, lin, lam, sstate, data,
+                                          aux)
+                cg += n_cg
+                cand = p.apply_update_fn(data, estimates, dx)
+                lin_cand = p.linearize_fn(data, cand)
+                with span("read.chi2"):
+                    chi_new = float(lin_cand.chi2_robust)
+                with span("read.gain"):
+                    scale = float(torch.sum(dx * (lam * dx + lin.b))) + 1e-3
+                rho = (chi0 - chi_new) / scale
+                good = math.isfinite(chi_new) and rho > 0 and chi_new < chi0
+                trials += 1
+                if good:
+                    lam *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
+                    ni = 2.0
+                    est_out, chi_out, lin_out = cand, chi_new, lin_cand
+                else:
+                    lam *= ni
+                    ni *= 2.0
         return (est_out, chi0, chi_out, lam, ni, good, trials, sstate, cg,
                 lin_out)
 
@@ -140,7 +146,8 @@ def make_lm_run(problem, solver, *, max_trials: int = 10,
         lam, ni = float(lam), float(ni)
         lin = p.linearize_fn(data, estimates)
         if lam < 0:
-            lam = -lam * float(_max_abs_diag(p, lin))
+            with span("read.lambda0"):
+                lam = -lam * float(_max_abs_diag(p, lin))
         est, chi_prev = estimates, math.inf
         chi_hist, trial_hist, cg_hist = [], [], []
         for it in range(min(int(n_iters), max_iters)):
@@ -192,10 +199,12 @@ def optimize_fused(problem, solver, max_iterations: int, *,
     est = problem.estimates
     lin = problem.linearize_fn(problem.data, est)
     if lam < 0:
-        lam = -lam * float(_max_abs_diag(problem, lin))
+        with span("read.lambda0"):
+            lam = -lam * float(_max_abs_diag(problem, lin))
     ni = 2.0
     chi_hist, trial_hist, cg_hist = [], [], []
-    chi_f = chi_prev = float(lin.chi2_robust)
+    with span("read.chi2"):
+        chi_f = chi_prev = float(lin.chi2_robust)
     for it in range(max_iterations):
         (est, chi0, chi_f, lam, ni, good, trials, sstate, cg,
          lin) = one_iteration(est, lam, ni, sstate, lin)

@@ -57,6 +57,7 @@ from g2o_tpu_torch.core.types import REGISTRY, EdgeType
 from g2o_tpu_torch.ops import robust as robust_mod
 from g2o_tpu_torch.ops.bucketed import bucket_by_segment, slab_sum_t
 from g2o_tpu_torch.ops.onehot import onehot_gather, onehot_scatter_add_t
+from g2o_tpu_torch.utils.tictoc import span
 
 
 class EdgeBatchData(NamedTuple):
@@ -411,6 +412,10 @@ class Problem:
         leaves are rounded to ``dtype`` once at the end (chi2 stays wide).
         On sharded data one all-reduce completes ``b``, the diagonal blocks,
         chi2 and the bucketed batches' landmark sums."""
+        with span("linearize"):
+            return self._linearize(data, estimates)
+
+    def _linearize(self, data: ProblemData, estimates) -> LinearizedSystem:
         sdt = self.state_dtype
         b_blocks = {t: torch.zeros((self.counts[t], vt.tangent_dim),
                                    dtype=sdt, device=self.device)

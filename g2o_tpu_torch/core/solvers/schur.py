@@ -43,6 +43,7 @@ from g2o_tpu_torch.core.problem import (all_reduce_sum_, edge_sum_,
 from g2o_tpu_torch.core.solvers.dense import cholesky_solve_or_nan
 from g2o_tpu_torch.ops.segment_kernels import segment_sum, segment_sum_plain
 from g2o_tpu_torch.ops.smallblocks import inv_small
+from g2o_tpu_torch.utils.tictoc import span
 
 
 def _observation_pairs(obs_lm):
@@ -300,21 +301,24 @@ class SchurSolver:
             """(Hschur, bschur, B, Dinv) — the dense reduced camera system
             plus the per-observation off-diagonal blocks and landmark block
             inverses."""
-            B = build_B(data, lin)                         # (Eo, dp, dl)
-            Dinv = landmark_dinv(lin, lam, aux)
-            bl = lin.b[aux["lm_idx2"]]                     # (NL, dl)
-            y = torch.einsum("nij,nj->ni", Dinv, bl)       # Dinv · bl
-            # bschur = bp − B·y, scattered over observations
-            contrib = torch.einsum("edl,el->ed", B, y[aux["obs_lm"]])
-            bschur = lin.b[aux["pose_to_global"]].index_add_(
-                0, aux["cam_idx2"].reshape(-1), contrib.reshape(-1),
-                alpha=-1)
+            with span("schur.reduce"):
+                B = build_B(data, lin)                     # (Eo, dp, dl)
+                Dinv = landmark_dinv(lin, lam, aux)
+                bl = lin.b[aux["lm_idx2"]]                 # (NL, dl)
+                y = torch.einsum("nij,nj->ni", Dinv, bl)   # Dinv · bl
+                # bschur = bp − B·y, scattered over observations
+                contrib = torch.einsum("edl,el->ed", B, y[aux["obs_lm"]])
+                bschur = lin.b[aux["pose_to_global"]].index_add_(
+                    0, aux["cam_idx2"].reshape(-1), contrib.reshape(-1),
+                    alpha=-1)
+                Hpp = build_Hpp(data, lin, lam, aux)
             # Hschur = Hpp − Σ_pairs B_a Dinv B_bᵀ, aggregated per unique
             # camera-block pair first
-            Hpp = build_Hpp(data, lin, lam, aux)
-            Mu = aggregate(pair_products(B, Dinv, aux), aux)
-            Hschur = Hpp.reshape(-1).index_add_(
-                0, aux["uniq_flat"], Mu.reshape(-1), alpha=-1).reshape(Tp, Tp)
+            with span("schur.pairs"):
+                Mu = aggregate(pair_products(B, Dinv, aux), aux)
+                Hschur = Hpp.reshape(-1).index_add_(
+                    0, aux["uniq_flat"], Mu.reshape(-1),
+                    alpha=-1).reshape(Tp, Tp)
             return Hschur, bschur, B, Dinv
 
         def factor_solve(Hschur, bschur):
@@ -336,9 +340,12 @@ class SchurSolver:
             return dx
 
         def solve(data, lin, lam, aux):
-            Hschur, bschur, B, Dinv = reduced_parts(data, lin, lam, aux)
-            return back_substitute(lin, B, Dinv, factor_solve(Hschur, bschur),
-                                   aux)
+            with span("schur.solve"):
+                Hschur, bschur, B, Dinv = reduced_parts(data, lin, lam, aux)
+                with span("schur.factor"):
+                    dxp = factor_solve(Hschur, bschur)
+                with span("schur.back_substitute"):
+                    return back_substitute(lin, B, Dinv, dxp, aux)
 
         self._solve_fn = solve
         self._reduced_parts_fn = reduced_parts   # for marginals

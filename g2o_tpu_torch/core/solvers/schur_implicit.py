@@ -85,6 +85,7 @@ from g2o_tpu_torch.ops.onehot import (onehot_gather, onehot_gather_t,
                                       onehot_scatter_add,
                                       onehot_scatter_add_t)
 from g2o_tpu_torch.ops.smallblocks import inv_small, inv_small_t
+from g2o_tpu_torch.utils.tictoc import span
 
 
 def _damped_diag(p, data, lin, lam, types):
@@ -136,17 +137,28 @@ def _pcg(S_vec, precond, project, bschur, types, tol, max_iter, carry):
     thresh = tol * tol * rhs2
     if carry is not None:
         thresh = torch.maximum(thresh, carry.to(thresh.dtype))
+
+    def go_on(it):
+        if it >= max_iter:
+            return False
+        with span("read.cg_stop"):
+            return bool(pdot(r, r) > thresh)
+
     it = 0
-    while it < max_iter and bool(pdot(r, r) > thresh):
-        Ap = project(S_vec(pv))
-        alpha = rz / pdot(pv, Ap)
-        x = {t: x[t] + alpha * pv[t] for t in types}
-        r = {t: r[t] - alpha * Ap[t] for t in types}
-        z = project(precond(r))
-        rz2 = pdot(r, z)
-        pv = {t: z[t] + (rz2 / rz) * pv[t] for t in types}
-        rz = rz2
-        it += 1
+    running = go_on(it)
+    while running:
+        # an iteration's span closes after the stop test that follows it
+        with span("cg.iter"):
+            Ap = project(S_vec(pv))
+            alpha = rz / pdot(pv, Ap)
+            x = {t: x[t] + alpha * pv[t] for t in types}
+            r = {t: r[t] - alpha * Ap[t] for t in types}
+            z = project(precond(r))
+            rz2 = pdot(r, z)
+            pv = {t: z[t] + (rz2 / rz) * pv[t] for t in types}
+            rz = rz2
+            it += 1
+            running = go_on(it)
     res2 = pdot(r, r)
     return x, {"cg_iterations": it, "residual2": res2, "rhs2": rhs2,
                "carry": 0.5 * res2}
@@ -914,13 +926,20 @@ class ImplicitSchurSolver:
             """One solve: ``(dx, stats)`` with the CG iteration count and
             the final residual (the reference's iterationsLinearSolver
             statistic, ``g2o/core/batch_stats.h:59``)."""
-            ctx = parts["landmark_system"](data, lin, lam, aux)
-            bschur = parts["reduced_rhs"](ctx, data, lin, aux)
-            diag_blocks, minv = parts["preconditioner"](ctx, data, lin, lam,
-                                                        aux)
-            dxp, stats = parts["cg"](ctx, data, lin, bschur, diag_blocks,
-                                     minv, aux, carry)
-            return parts["back_substitute"](ctx, data, lin, dxp, aux), stats
+            with span("schur_implicit.solve"):
+                with span("schur_implicit.landmark_system"):
+                    ctx = parts["landmark_system"](data, lin, lam, aux)
+                with span("schur_implicit.reduced_rhs"):
+                    bschur = parts["reduced_rhs"](ctx, data, lin, aux)
+                with span("schur_implicit.preconditioner"):
+                    diag_blocks, minv = parts["preconditioner"](
+                        ctx, data, lin, lam, aux)
+                with span("schur_implicit.cg"):
+                    dxp, stats = parts["cg"](ctx, data, lin, bschur,
+                                             diag_blocks, minv, aux, carry)
+                with span("schur_implicit.back_substitute"):
+                    dx = parts["back_substitute"](ctx, data, lin, dxp, aux)
+            return dx, stats
 
         self._solve_full = solve_full
         # each stage alone, for per-layer timing

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from g2o_tpu_torch.utils.tictoc import span
+
 
 def cholesky_or_nan(A):
     """Lower Cholesky factor of SPD ``A (..., n, n)``; a matrix that is not
@@ -87,7 +89,10 @@ def inv_small(A):
             torch.stack([c02, c12, c22], dim=-1),
         ], dim=-2)
         return M * inv_det[..., None, None]
-    return torch.cholesky_inverse(cholesky_or_nan(A))
+    L = cholesky_or_nan(A)
+    # torch checks the inverse's info on the host: one device read a call
+    with span("read.cholesky_inverse"):
+        return torch.cholesky_inverse(L)
 
 
 def inv_small_t(At):

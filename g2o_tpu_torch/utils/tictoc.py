@@ -2,13 +2,22 @@
 
 String-keyed accumulating timers — analogue of the reference ``tictoc``
 (``g2o/stuff/tictoc.h:40-75``): enabled by the ``G2O_ENABLE_TICTOC`` env
-var, tracks call count / total / min / max / mean per key."""
+var, tracks call count / total / min / max / mean per key.
+
+:func:`span` marks a stage of the program.  It is on while a
+``torch.profiler`` records or ``G2O_ENABLE_TICTOC`` is set, and a shared
+no-op otherwise.  While a profiler records, a span is a host range named
+``"g2o." + name`` in the profiler's trace, on the clock of the kernels it
+launches; while it is on, it also accumulates here under ``name``, so
+``stats()`` holds a profiled run's span counts and host seconds."""
 
 from __future__ import annotations
 
 import os
 import time
 from contextlib import contextmanager
+
+import torch
 
 
 class _Stat:
@@ -24,6 +33,12 @@ class _Stat:
     @property
     def mean(self):
         return self.total / self.count if self.count else 0.0
+
+    def add(self, dt: float):
+        self.count += 1
+        self.total += dt
+        self.min = min(self.min, dt)
+        self.max = max(self.max, dt)
 
 
 _STATS: dict[str, _Stat] = {}
@@ -47,10 +62,7 @@ def toc(key: str) -> float:
         return 0.0
     dt = time.perf_counter() - s._start
     s._start = None
-    s.count += 1
-    s.total += dt
-    s.min = min(s.min, dt)
-    s.max = max(s.max, dt)
+    s.add(dt)
     return dt
 
 
@@ -61,6 +73,54 @@ def tictoc(key: str):
         yield
     finally:
         toc(key)
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str, profiled: bool):
+        self.name = name
+        # a FUNCTION-scoped range: a host event of the trace that, unlike
+        # ``record_function``'s user scope, puts no annotation on the
+        # device's timeline, so kernel and idle intervals stay as they are
+        self._range = (torch._C._profiler._RecordFunctionFast("g2o." + name)
+                       if profiled else None)
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return None
+
+    def __exit__(self, *exc):
+        _STATS.setdefault(self.name, _Stat()).add(
+            time.perf_counter() - self._t0)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one stage of the program (see the module
+    docstring); nothing but a check of the profiler's state and of
+    ``G2O_ENABLE_TICTOC`` while neither is on."""
+    profiled = torch.autograd._profiler_enabled()
+    if not profiled and not enabled():
+        return _NO_SPAN
+    return _Span(name, profiled)
 
 
 def stats() -> dict:
