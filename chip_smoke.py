@@ -66,6 +66,14 @@ exits non-zero without printing a result:
    the mixed sba path's shapes (phase 10): (49, 6) -> (E_pad, 6) gathers
    bit for bit, (E_pad, 6) -> (49, 6) and (E_pad, 36) -> (49, 36) sums
    (the latter past ``ROWSUM_MAX_CELLS``: a memset and the kernel);
+   Then the Schur rows kernel (``onehot.schur_rows_t``, the dims-major
+   ``S·v``'s Schur term per camera) on the three dims-major paths' own
+   ``Bt``, ids and ``DinvT`` and at the benchmark's Venice configuration
+   (``SCHUR_ROWS_VENICE``, drawn): against its plain version in float32 and
+   float64, the same bits on two calls, one operation a call; timed in
+   turns beside its plain version and the composition it replaces (K5,
+   the PyTorch products and slab sums, K6), with its bound over the
+   observations and over every slab row (``[schur_rows]``);
 8. main paths, implicit Schur: ``ImplicitSchurSolver`` with ``bench.py``'s
    settings, 10 LM iterations after a warm-up, float32, every camera free:
    ladybug, Venice (``bal-C800-P150000-K6``, with gauge deflation) and
@@ -358,11 +366,16 @@ RUNTIME_ONE_OP = ("onehot_gather", "onehot_scatter_add")
 # the card at the three dims-major paths' shapes
 DIMS_MAJOR_ONE_OP = ("onehot_gather_t", "onehot_scatter_add_t")
 ONEHOT = ("onehot_gather", "onehot_gather_t", "onehot_scatter_add",
-          "onehot_scatter_add_t")
+          "onehot_scatter_add_t", "schur_rows_t")
 # the JSON line's entry of each new kernel, and the wrappers that launch it
 NEW_KERNELS = {"onehot_gather": ("onehot_gather", "onehot_gather_t"),
                "onehot_scatter_add": ("onehot_scatter_add",
-                                      "onehot_scatter_add_t")}
+                                      "onehot_scatter_add_t"),
+               "schur_rows": ("schur_rows_t",)}
+# the benchmark's Venice configuration (portbench/configs/bal-venice-1778
+# .json): cameras, points, observations; the Schur rows kernel is timed on
+# a slab layout drawn at these counts (tracks of 2 + Poisson(mean - 2))
+SCHUR_ROWS_VENICE = (1778, 993923, 5001946)
 # published H100 SXM peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1677,6 +1690,116 @@ def onehot_kernel_phase(torch, oh, implicit, sba):
     return out
 
 
+def schur_rows_synthetic(torch, C, P, O, seed=0):
+    """Schur rows inputs ``(counts, degrees, Bt, ids, DinvT, v)``, float32,
+    at C cameras, P points and O observations, and the observations drawn:
+    tracks of 2 + Poisson(O/P - 2) observations bucketed as
+    ``build_problem`` buckets them, random B (zero on padding rows, as W = 0
+    makes it), random camera ids, ``DinvT`` a dims-major view of row-major
+    blocks (as ``inv_small_t`` gives it)."""
+    from g2o_tpu_torch.ops.bucketed import bucket_by_segment
+
+    rng = np.random.default_rng(seed)
+    deg = 2 + rng.poisson(O / P - 2, P)
+    plan = bucket_by_segment(np.repeat(np.arange(P), deg), P)
+    n, S = len(plan.perm_src), len(plan.seg_perm)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Bt = torch.randn((9, 3, n), generator=g, device="cuda")
+    Bt *= torch.as_tensor(plan.perm_src < deg.sum(), device="cuda")
+    ids = torch.as_tensor(rng.integers(0, C, n).astype(np.int32),
+                          device="cuda")
+    DinvT = torch.randn((S, 3, 3), generator=g, device="cuda").movedim(0, -1)
+    v = torch.randn((C, 9), generator=g, device="cuda")
+    return (plan.counts, plan.degrees, Bt, ids, DinvT, v), int(deg.sum())
+
+
+def schur_rows_path_inputs(torch, p, solver, lam=1e-3):
+    """The Schur rows inputs of a dims-major implicit solve of ``p``: its
+    own ``Bt``, ids and ``DinvT`` at ``lam``, and a random camera vector;
+    and its observations."""
+    name = "EDGE_OBSERVATION_BAL"
+    ctx = solver._parts["landmark_system"](
+        p.data, p.linearize_fn(p.data, p.estimates), lam, solver.aux)
+    spec = p.bucket_specs[name]
+    v = torch.randn((p.counts["VERTEX_CAMERA_BAL"], 9), device="cuda")
+    return (spec.counts, spec.degrees, ctx["Bt"][name],
+            solver._rows_here(p.data, name)[2], ctx["DinvT"][name],
+            v), p.num_edges
+
+
+def schur_rows_phase(torch, oh, cases):
+    """The Schur rows kernel (the S·v Schur term per camera) at each case
+    (``{tag: (float32 inputs, observations)}``): against its plain version
+    in float32 and float64 (the inputs cast) within TOL, two calls the same
+    bits, one operation on the card a call; then, float32, in turns (six
+    windows of 20 calls a side, the median): the kernel (``ms``), its plain
+    version and the composition it replaces (``composed_ms``: K5, the
+    PyTorch products and slab sums, K6), with the device µs and operations
+    of the kernel and the composition, and the kernel's bound: B and ids of
+    the observations (the slab layout's padding rows left out), Dinv and v
+    read, the camera sums written, against 3.35 TB/s (``padded_bound_ms``:
+    B and ids of every slab row).  Returns ``{shape: {"schur_rows":
+    times}}``."""
+    out = {}
+    for tag, (args32, n_obs) in cases.items():
+        counts, degrees, Bt, ids, DinvT, v = args32
+        C, (dp, dl, N), S = v.shape[0], Bt.shape, DinvT.shape[-1]
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            args = (counts, degrees, Bt.to(dtype), ids, DinvT.to(dtype),
+                    v.to(dtype))
+            got, want = oh.schur_rows_t(*args), oh.schur_rows_t_plain(*args)
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            same = torch.equal(got, oh.schur_rows_t(*args))
+            ops = device_profile(torch, lambda: oh.schur_rows_t(*args))[1]
+            phase("kernels", kernel="schur_rows_t", path=tag, dtype=dname,
+                  shape=f"{dp}x{dl}x{N}->{C}", rel_err=f"{rel:.3e}",
+                  same_bits_on_two_calls=same, device_ops_per_call=ops,
+                  tol=TOL[dname])
+            if rel > TOL[dname] or not same or ops != 1:
+                raise RuntimeError(f"schur_rows_t at {tag} {dname}: rel "
+                                   f"{rel}, same bits {same}, {ops} "
+                                   f"operations a call")
+
+        def composed():
+            return oh.schur_rows_t_plain(
+                *args32, gather=oh.onehot_gather_t,
+                scatter_add=oh.onehot_scatter_add_t)
+
+        fns = {"ms": lambda: oh.schur_rows_t(*args32),
+               "plain_ms": lambda: oh.schur_rows_t_plain(*args32),
+               "composed_ms": composed}
+        t = _in_turns(torch, fns, reps=20, rounds=6)
+        want = composed()
+        rel = ((oh.schur_rows_t(*args32) - want).abs().max()
+               / want.abs().max()).item()
+        dev = {k: device_profile(torch, fns[k]) for k in ("ms", "composed_ms")}
+
+        def bound_ms(rows):
+            ops = rows * dp * dl * 4 + rows * dp + S * dl * dl * 2
+            nbytes = (dp * dl * rows + dl * dl * S + 2 * C * dp) * 4 + 4 * rows
+            return max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S) * 1e3
+
+        b_ms, pad_ms = bound_ms(n_obs), bound_ms(N)
+        out[f"{tag}:schur_rows_t:{dp}x{dl}x{N}->{C}"] = {"schur_rows": dict(
+            t, bound_ms=b_ms, padded_bound_ms=pad_ms, bound_by="bytes",
+            device_us_per_call=dev["ms"][0],
+            device_ops_per_call=dev["ms"][1],
+            composed_device_us=dev["composed_ms"][0],
+            composed_device_ops=dev["composed_ms"][1])}
+        phase("schur_rows", path=tag, shape=f"{dp}x{dl}x{N}->{C}",
+              buckets=len(counts), dtype="float32",
+              **{k: f"{x:.4f}" for k, x in t.items()},
+              device_us_per_call=f"{dev['ms'][0]:.2f}",
+              device_ops_per_call=dev["ms"][1],
+              composed_device_us=f"{dev['composed_ms'][0]:.2f}",
+              composed_device_ops=dev["composed_ms"][1],
+              observations=n_obs, bound_ms=f"{b_ms:.4f}",
+              padded_bound_ms=f"{pad_ms:.4f}", bound_by="bytes",
+              vs_composed_rel=f"{rel:.3e}")
+    return out
+
+
 def implicit_main_path_phase(torch, g2o, wrappers, implicit, keep):
     """The implicit Schur paths; returns the launch counts of each run and
     keeps the dims-major ladybug run (problem, solver, result) for the
@@ -1686,8 +1809,8 @@ def implicit_main_path_phase(torch, g2o, wrappers, implicit, keep):
         cfg = IMPLICIT_PATHS[suffix]
         tag = f"main_path_ba_implicit{suffix}"
         form = solver._layout["form"]
-        need = (("onehot_gather_t", "onehot_scatter_add_t") if form == "dm"
-                else ("onehot_gather", "onehot_scatter_add"))
+        need = (("onehot_gather_t", "onehot_scatter_add_t", "schur_rows_t")
+                if form == "dm" else ("onehot_gather", "onehot_scatter_add"))
         p.set_estimates({t: v.clone() for t, v in est0.items()})
         res, launches = _run_lm(
             torch, g2o, wrappers, p, est0, solver, tag, need=need, iters=10,
@@ -1706,6 +1829,11 @@ def implicit_main_path_phase(torch, g2o, wrappers, implicit, keep):
               cg_per_iteration=",".join(map(str, res["cg_per_iteration"])),
               **{f"{k}_per_lambda_trial": f"{launches[k] / max(trials, 1):.2f}"
                  for k in ONEHOT})
+        # the dims-major S·v: one Schur rows launch per CG iteration
+        cg = sum(res["cg_per_iteration"])
+        if launches["schur_rows_t"] != (cg if form == "dm" else 0):
+            raise RuntimeError(f"{tag}: {launches['schur_rows_t']} Schur rows "
+                               f"launches in {cg} CG iterations ({form})")
         lt = implicit_layer_times(torch, g2o, p, solver, res["lambda_final"],
                                   explicit=suffix == "_runtime")
         phase(f"layers_ba_implicit{suffix}", **{
@@ -4286,6 +4414,11 @@ def main():
     implicit = load_implicit(torch, g2o)
     sba = load_sba(torch)
     onehot_times = onehot_kernel_phase(torch, oh, implicit, sba)
+    schur_rows_times = schur_rows_phase(torch, oh, {
+        **{f"{kind}": schur_rows_path_inputs(torch, *implicit[suffix][:2])
+           for kind, suffix in (("ladybug_dm", ""), ("stress_dm", "_stress"),
+                                ("venice", "_venice"))},
+        "venice1778": schur_rows_synthetic(torch, *SCHUR_ROWS_VENICE)})
     by_path = main_path_phase(torch, g2o, wrappers)
     by_path.update(ba_main_path_phase(torch, g2o, wrappers, ba))
     keep = {}
@@ -4306,19 +4439,23 @@ def main():
     lay = ba["ladybug"][1]._layout
     times.update(seg_times)
     times.update(onehot_times)
+    times.update(schur_rows_times)
     n_venice = _path_ids(implicit, sba)["venice"][0].shape[0]
     shape_key = {k: _shape(*sh) for k, sh in PRIMARY.items()}
     shape_key["segment_sum"] = (f"{lay['n_pairs']}x{lay['dp'] ** 2}->"
                                 f"{lay['n_uniq']}")
     for k in NEW_KERNELS:
         shape_key[k] = f"venice:{k}_t:{n_venice}x9<->800"
+    shape_key["schur_rows"] = next(
+        k for k in schur_rows_times if k.startswith("venice1778:"))
     chol_src = "g2o_tpu_torch/csrc/batched_chol.cu"
     onehot_src = "g2o_tpu_torch/csrc/gather_segment.cu"
     experimental = "scripts/pallas_onehot_experimental.py"
     source = {"chol_batched": chol_src, "solve_lower_batched": chol_src,
               "solve_upper_batched": chol_src,
               "segment_sum": "g2o_tpu_torch/csrc/segment_sum.cu",
-              "onehot_gather": onehot_src, "onehot_scatter_add": onehot_src}
+              "onehot_gather": onehot_src, "onehot_scatter_add": onehot_src,
+              "schur_rows": onehot_src}
     replaces = {"chol_batched": "g2o_tpu/ops/pallas_chol.py:89",
                 "solve_lower_batched": "g2o_tpu/ops/pallas_chol.py:188",
                 "solve_upper_batched": "g2o_tpu/ops/pallas_chol.py:194",
@@ -4329,7 +4466,9 @@ def main():
                 "onehot_scatter_add": (
                     f"{experimental}:112 segment_sum_t_mxu (K6); :172 "
                     f"segment_sum_rows_mxu (K8); :274 segment_sum_t_mxu2 "
-                    f"(K9)")}
+                    f"(K9)"),
+                "schur_rows": "none: fuses K5, the PyTorch products and "
+                              "slab sums around it, and K6"}
 
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [

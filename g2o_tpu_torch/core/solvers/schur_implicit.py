@@ -31,7 +31,10 @@ marginalized) has three observation layouts:
   it): fully DIMS-MAJOR (``dm``) — the off-diagonal blocks and the
   bucket-order landmark system come from the linearization's ``extras``,
   the camera side runs the dims-major gather and segment-sum kernels, and
-  no landmark-axis index op is left in the CG body.
+  no landmark-axis index op is left in the CG body.  On unsharded data
+  the Schur term of each ``S·v`` is one call of the Schur rows kernel
+  (``ops/onehot.py::schur_rows_t``: the gather, ``Bᵀu``, the slab sums,
+  ``Dinv``, ``B s`` and the camera sums in one pass over B).
 
 A landmark type observed by several edge types (ORB-SLAM's mono and stereo
 edges on one map) keeps the bucketed slabs per edge type but leaves the
@@ -83,7 +86,8 @@ from g2o_tpu_torch.ops.bucketed import (bucket_by_segment,
                                         slab_broadcast_t, slab_sum_t)
 from g2o_tpu_torch.ops.onehot import (onehot_gather, onehot_gather_t,
                                       onehot_scatter_add,
-                                      onehot_scatter_add_t)
+                                      onehot_scatter_add_t, schur_rows_fits,
+                                      schur_rows_t)
 from g2o_tpu_torch.ops.smallblocks import inv_small, inv_small_t
 from g2o_tpu_torch.utils.tictoc import span
 
@@ -290,6 +294,13 @@ class ImplicitSchurSolver:
         dm = {name: bucketed and pre[name] and sole_obs[name]
               for name, _, _ in obs_specs}
         dm_lm = {lm_of[name] for name, _, _ in obs_specs if dm[name]}
+        # a ``dm`` batch whose widths and camera count the Schur rows
+        # kernel takes computes the Schur term of S·v in one call of it
+        # (unsharded data)
+        fused = {name: dm[name] and schur_rows_fits(
+            p.counts[pt_of[name]], p.vertex_types[pt_of[name]].tangent_dim,
+            p.vertex_types[lm_of[name]].tangent_dim, dtype)
+            for name, _, _ in obs_specs}
         # the obs batches whose Schur term reduces in natural landmark order
         rem = [spec for spec in obs_specs
                if not (bucketed and sole_obs[spec[0]])]
@@ -578,13 +589,21 @@ class ImplicitSchurSolver:
                                       p.edge_weights(lin, name),
                                       range(len(Js)), vb)
             # the Schur term − B Dinv Bᵀ v; a landmark type with one
-            # observer edge type stays in bucket order
+            # observer edge type stays in bucket order.  Sharded, a
+            # landmark's rows may lie on several processes: its sum Bᵀv
+            # is completed by an all-reduce before Dinv
             if bucketed:
                 for name, ps, ls in obs_specs:
                     if not sole_obs[name]:
                         continue
                     pt = pt_of[name]
                     Bts = ctx["Bt"][name]
+                    if fused[name] and data.group is None:
+                        counts, degrees, _ = bspec[name]
+                        out[pt] = out[pt] - schur_rows_t(
+                            counts, degrees, Bts, rows_here(data, name)[2],
+                            ctx["DinvT"][name], vb[pt])
+                        continue
                     t_ = bucket_down_t(Bts, gather_t(data, name, vb[pt]),
                                        data, name)
                     s_t = torch.sum(ctx["DinvT"][name] * t_[None], dim=1)

@@ -208,6 +208,53 @@
 // order varies with the atomics, so results differ from a sequential sum
 // in the last bits.
 //
+// Schur rows (g2o_schur_rows_*; the dims-major implicit Schur solver's S·v,
+// once per CG iteration): out[c] = sum over the rows of camera c of B_row
+// s_k, where k is the row's landmark, s_k = Dinv_k t_k and t_k = sum over the
+// rows j of k of B_jᵀ v[ids[j]].  B is (DP, DL, N) dims-major in slab order
+// (bucket b: count[b] landmarks x degree[b] rows, degree-major, so row j of
+// landmark k is row0[b] + j*count[b] + k), Dinv (DL, DL, S_used) in bucket
+// order, v and out (C, DP).  It replaces no Pallas kernel: the JAX package
+// leaves this product to XLA as slab reshapes and sums.  It fuses K5's
+// gather, the PyTorch products around it (Bᵀu, the slab sums, Dinv, the slab
+// broadcast, B s) and K6's segment sum, which wrote a (DP, N) gather, two
+// (DP, DL, N) products and their (DL, N) and (DP, N) reductions to device
+// memory in ~35 launches.  Bound: bytes, B read once (DP*DL values a row:
+// 540 MB over the 5.0M observations of the benchmark's Venice configuration
+// in float32, 585 MB with the slab layout's padding rows) beside the ids and
+// Dinv; nothing of size N is written.  Design: a block of 256 threads is L
+// landmarks x R row slots, R the degree rounded up to a power of two (at most
+// 8, so L >= 32 and a warp's lanes are 32 neighbouring landmarks: each load
+// of B is one coalesced run); slot r takes rows r, r + R, ... of its
+// landmark, keeps the first row's B and id in registers, reads v[id] through
+// L1 (B streams past it, evict-first) and adds Bᵀu in row order; slot 0 loads
+// Dinv_k beside its first row.  The slots' sums meet in shared memory, where
+// slot 0 adds them in slot order and applies Dinv_k.  Then, a round per row
+// of a slot (the first from registers, any later one, past R, read again from
+// L1 or L2), each thread stages B s and its camera in shared memory, and each
+// warp adds the staged rows of its own cameras (id % 8), in row order, into
+// the block's (C, DP) sums in shared memory, its lane groups (32 / DP of DP
+// lanes) on disjoint cameras side by side.  After the tiles (blocks walk the
+// tiles of all buckets, as many blocks as the SMs hold at once) each block
+// stores its sums as a partial; after a grid barrier (a cooperative launch)
+// each cell is summed over the blocks in a fixed order, as K6 does.  No
+// atomics, so a call gives the same bits every time; the partials' scratch
+// follows K6's rule.  The block's sums bound C: C*DP values and the buffers
+// within SROWS_SMEM (C <= 5915 at DP = 9 in float32, 2743 in float64).
+// Measured (device us per call, float32, chip_smoke.py's [schur_rows] rows
+// and variants built side by side; H100 80GB HBM3, 700 W): at the Venice
+// configuration (9x3x5414584 -> 1778) 506, against 2490 for the composition
+// it replaces (K5, 22 PyTorch operations, K6) and a bound of 178 over the
+// observations (192 with the padding rows); at
+// chip_smoke.py's C800 Venice file 94 against 388.  Tried there: the first
+// design, which wrote B s per row (195 MB) for K6 to sum, 438 + 352 for K6;
+// the camera adds one row at a time per warp with B read through L1, 632;
+// with the lane groups and B streamed but Dinv loaded after the barrier, 540;
+// blocks of 512 threads 519-529, of 128 856.  What holds it at 35% of its
+// bound is not measured: each block runs its phases in turn (loads, two
+// barriers, the camera adds), and the (C, DP) sums' 64 KB leave room for two
+// blocks on an SM.
+
 // Why not one thread block cluster for K8 (8 blocks, per-warp shared sums
 // in a fixed order, combined through distributed shared memory): measured
 // on an H100 80GB HBM3 at 700 W (scripts/onehot_ab.py), it took 17.4-18.6
@@ -269,6 +316,17 @@ constexpr int SEGT_MAX_CELLS = 65536;
 static_assert(2 * SEGT_CHUNK_BYTES +
                   (2 * (SEGT_CHUNK_BYTES / 4) + 2 * SEGT_COUNTS + 1) * 4 <= SEGT_SMEM,
               "the sorted phase's shared memory");
+
+constexpr int SROWS_LG_THREADS = 8;             // the Schur rows' blocks:
+constexpr int SROWS_THREADS = 1 << SROWS_LG_THREADS;   // landmarks x row slots
+constexpr int SROWS_LG_WARPS = SROWS_LG_THREADS - 5;
+constexpr int SROWS_WARPS = 1 << SROWS_LG_WARPS;
+constexpr int SROWS_WLD = SROWS_THREADS + 1;    // a round's rows: the columns
+                                                // of one row on distinct banks
+constexpr int SROWS_LG_MAX_SLOTS = 3;           // at most 8 row slots, so a
+                                                // warp takes 32 landmarks
+constexpr int SROWS_MAX_BUCKETS = 16;
+constexpr int SROWS_SMEM = 224 * 1024;          // its shared-memory limit
 
 // one 16-byte store of 16 / sizeof(T) values
 __device__ __forceinline__ void store16(float* p, const float* s) {
@@ -826,36 +884,19 @@ __device__ void segment_sum_t_sorted(const T* __restrict__ values,
     for (size_t e = tid; e < cells; e += SEGT_THREADS) mine[e] = T(0);
 }
 
-// the dims-major segment sum for S*D <= SEGT_MAX_CELLS and S <=
-// SEGT_COUNTS: values (D, N), out (S, D).  Block r sums the r-th of
-// gridDim.x runs of rows into its partial part[r][d][s], by column or by
-// sorted rows (the header says how; `ld`, `Cs`, `nbuf`, `Ws` are the
-// sorted phase's chunk rows, stage columns, stage buffers and counting
-// warps); after a grid barrier each cell is summed over the runs in a
-// fixed order.
-template <typename T, bool BY_COLUMN>
-__global__ void __launch_bounds__(SEGT_THREADS, 1)
-segment_sum_t_kernel(const T* __restrict__ values, const int* __restrict__ idx,
-                     T* __restrict__ out, T* __restrict__ part, int N, int S,
-                     int D, int ld, int Cs, int nbuf, int Ws) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x;
-  const size_t cells = (size_t)S * D;
-  if constexpr (BY_COLUMN) {
-    segment_sum_t_by_column(values, idx, part, N, S, D,
-                            reinterpret_cast<T*>(smem_raw));
-  } else {
-    segment_sum_t_sorted(values, idx, part, N, S, D, ld, Cs, nbuf, Ws,
-                         smem_raw);
-  }
-  cooperative_groups::this_grid().sync();
-  // L lanes per cell (a power of two, as many as the grid's threads allow,
-  // at most 32): lane `sub` sums runs sub, sub + L, ... in order, then a
-  // fixed shuffle tree adds the L lanes
+// after a one-launch sum's grid barrier: cell c of `cells` summed over
+// the gridDim.x partials part[b][c] in a fixed order and handed to
+// store(c, sum).  L lanes per cell (a power of two, as many as the grid's
+// threads allow, at most 32): lane `sub` sums partials sub, sub + L, ... in
+// order, eight loads ahead of the adds, then a fixed shuffle tree adds the
+// L lanes
+template <typename T, typename Store>
+__device__ __forceinline__ void sum_partials(const T* __restrict__ part,
+                                             size_t cells, Store store) {
   const int threads = gridDim.x * blockDim.x;
   int L = 32;
   while (L > 1 && cells * L > (size_t)threads) L >>= 1;
-  const int gt = blockIdx.x * blockDim.x + tid, sub = gt & (L - 1);
+  const int gt = blockIdx.x * blockDim.x + threadIdx.x, sub = gt & (L - 1);
   const size_t grp = gt / L, groups = threads / L, firstg = (gt & ~31) / L;
   for (size_t r = 0; firstg + r * groups < cells; ++r) {   // the same for a warp
     const size_t c = grp + r * groups;
@@ -874,8 +915,236 @@ segment_sum_t_kernel(const T* __restrict__ values, const int* __restrict__ idx,
       for (; b < G; b += L) a += __ldcg(pc + (size_t)b * cells);
     }
     for (int o = L / 2; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o, L);
-    if (c < cells && sub == 0) out[(c % S) * D + c / S] = a;   // cell (s, d)
+    if (c < cells && sub == 0) store(c, a);
   }
+}
+
+// the dims-major segment sum for S*D <= SEGT_MAX_CELLS and S <=
+// SEGT_COUNTS: values (D, N), out (S, D).  Block r sums the r-th of
+// gridDim.x runs of rows into its partial part[r][d][s], by column or by
+// sorted rows (the header says how; `ld`, `Cs`, `nbuf`, `Ws` are the
+// sorted phase's chunk rows, stage columns, stage buffers and counting
+// warps); after a grid barrier each cell is summed over the runs in a
+// fixed order.
+template <typename T, bool BY_COLUMN>
+__global__ void __launch_bounds__(SEGT_THREADS, 1)
+segment_sum_t_kernel(const T* __restrict__ values, const int* __restrict__ idx,
+                     T* __restrict__ out, T* __restrict__ part, int N, int S,
+                     int D, int ld, int Cs, int nbuf, int Ws) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t cells = (size_t)S * D;
+  if constexpr (BY_COLUMN) {
+    segment_sum_t_by_column(values, idx, part, N, S, D,
+                            reinterpret_cast<T*>(smem_raw));
+  } else {
+    segment_sum_t_sorted(values, idx, part, N, S, D, ld, Cs, nbuf, Ws,
+                         smem_raw);
+  }
+  cooperative_groups::this_grid().sync();
+  sum_partials(part, cells, [&](size_t c, T a) {
+    out[(c % S) * D + c / S] = a;                 // cell (s, d)
+  });
+}
+
+// ------------------------------------------------------------------------ //
+// the implicit Schur product's Schur term per camera, dims-major
+// ------------------------------------------------------------------------ //
+
+// a bucketed batch's slabs as schur_rows_kernel walks them: bucket b holds
+// count[b] landmarks of degree[b] rows, degree-major from row row0[b]; its
+// landmarks are seg0[b].. in bucket order; a tile of it is 256 >> lg_slots[b]
+// landmarks times 1 << lg_slots[b] row slots; its tiles are tile0[b]..
+struct SlabBuckets {
+  int n;
+  int count[SROWS_MAX_BUCKETS];
+  int degree[SROWS_MAX_BUCKETS];
+  int lg_slots[SROWS_MAX_BUCKETS];
+  int row0[SROWS_MAX_BUCKETS];
+  int seg0[SROWS_MAX_BUCKETS];
+  int tile0[SROWS_MAX_BUCKETS + 1];
+};
+
+// one round's rows into the block's per-camera sums.  Warp w owns the
+// cameras with cam % SROWS_WARPS == w, and its 32 / DP groups of DP lanes
+// split them further (group g: cam / SROWS_WARPS % groups == g); each
+// group walks the staged rows of its cameras in row order, lane a of it
+// adding column a.  No two groups touch one cell, each cell is added in a
+// fixed order, and the groups' chains of shared-memory adds run side by
+// side
+template <typename T, int DP>
+__device__ __forceinline__ void add_round(T* acc, const T* wbuf,
+                                          const int* cbuf) {
+  constexpr int G = 32 / DP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / DP, col = lane - grp * DP;
+  for (int c0 = 0; c0 < SROWS_THREADS; c0 += 32) {
+    const int cam = cbuf[c0 + lane];
+    const bool ours = cam >= 0 && (cam & (SROWS_WARPS - 1)) == warp;
+    const int cg = (cam >> SROWS_LG_WARPS) % G;
+    unsigned mine = 0;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const unsigned m = __ballot_sync(0xffffffffu, ours && cg == g);
+      if (grp == g) mine = m;
+    }
+    while (__any_sync(0xffffffffu, mine != 0)) {
+      const int u = mine ? __ffs(mine) - 1 : 0;
+      const int cu = __shfl_sync(0xffffffffu, cam, u);
+      if (mine) acc[cu * DP + col] += wbuf[col * SROWS_WLD + c0 + u];
+      mine &= mine - 1;
+    }
+  }
+}
+
+// out (C, DP): out[c] = sum over the rows of camera c of B_row Dinv_k
+// sum_{rows j of k} B_jᵀ v[ids[j]], k each row's landmark (the header says
+// how).  B[a][c][row] = Bt[a*sb0 + c*sb1 + row], Dinv[i][j][k] = dinv[i*sd0
+// + j*sd1 + k*sd2]; part: gridDim.x x C*DP partials (no initial value).
+template <typename T, int DP, int DL>
+__global__ void __launch_bounds__(SROWS_THREADS)
+schur_rows_kernel(const T* __restrict__ Bt, long long sb0, long long sb1,
+                  const int* __restrict__ ids, const T* __restrict__ dinv,
+                  long long sd0, long long sd1, long long sd2,
+                  const T* __restrict__ v, int C, T* __restrict__ out,
+                  T* __restrict__ part_g, SlabBuckets bk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cells = C * DP;
+  T* acc = reinterpret_cast<T*>(smem_raw);        // (C, DP): the block's sums
+  T* part = acc + cells;                          // (DL, threads): per slot
+  T* sk = part + DL * SROWS_THREADS;              // (DL, landmarks): s
+  T* wbuf = sk + DL * SROWS_THREADS;              // (DP, SROWS_WLD): a round
+  int* cbuf = reinterpret_cast<int*>(wbuf + DP * SROWS_WLD);   // its cameras
+  const int tid = threadIdx.x;
+  for (int j = tid; j < cells; j += SROWS_THREADS) acc[j] = T(0);
+  __syncthreads();
+  // B streams: read once (evict first), so L1 keeps the camera table
+  auto load_b = [&](int row, T (&B)[DP * DL]) {
+#pragma unroll
+    for (int a = 0; a < DP; ++a)
+#pragma unroll
+      for (int c = 0; c < DL; ++c)
+        B[a * DL + c] = __ldcs(Bt + a * sb0 + c * sb1 + row);
+  };
+  // t += Bᵀ v[id]; v through L1, zero for an id outside [0, C)
+  auto add_bt_u = [&](const T (&B)[DP * DL], int id, T (&t)[DL]) {
+    const bool in = id >= 0 && id < C;
+    T u[DP];
+#pragma unroll
+    for (int a = 0; a < DP; ++a) u[a] = in ? __ldg(v + id * DP + a) : T(0);
+#pragma unroll
+    for (int c = 0; c < DL; ++c) {
+      T a_ = B[c] * u[0];
+#pragma unroll
+      for (int a = 1; a < DP; ++a) a_ += B[a * DL + c] * u[a];
+      t[c] += a_;
+    }
+  };
+  // the round's buffer: B s of this thread's row
+  auto stage_bs = [&](const T (&B)[DP * DL], const T (&s)[DL]) {
+#pragma unroll
+    for (int a = 0; a < DP; ++a) {
+      T a_ = B[a * DL] * s[0];
+#pragma unroll
+      for (int c = 1; c < DL; ++c) a_ += B[a * DL + c] * s[c];
+      wbuf[a * SROWS_WLD + tid] = a_;
+    }
+  };
+  const int tiles = bk.tile0[bk.n];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int b = 0;
+    while (tile >= bk.tile0[b + 1]) ++b;
+    const int lg_r = bk.lg_slots[b], R = 1 << lg_r;
+    const int lg_l = SROWS_LG_THREADS - lg_r, L = 1 << lg_l;
+    const int l = tid & (L - 1), r = tid >> lg_l;   // landmark, row slot
+    const int n = bk.count[b], d = bk.degree[b];
+    const int k = ((tile - bk.tile0[b]) << lg_l) + l;
+    const bool live = k < n;
+    const int row0 = bk.row0[b] + k;                // + j * n: row j of k
+    // slot 0 loads its landmark's Dinv now, beside the first row's B, so
+    // that applying it waits on no load
+    T Dk[DL * DL];
+    if (r == 0 && live) {
+      const long long seg = bk.seg0[b] + k;
+#pragma unroll
+      for (int i = 0; i < DL; ++i)
+#pragma unroll
+        for (int c = 0; c < DL; ++c)
+          Dk[i * DL + c] = __ldg(dinv + i * sd0 + c * sd1 + seg * sd2);
+    }
+    // Σ Bᵀu over the slot's rows r, r + R, ..., in order; the first row's
+    // B and id stay in registers for the rounds
+    T B0[DP * DL], t[DL];
+#pragma unroll
+    for (int c = 0; c < DL; ++c) t[c] = T(0);
+    int id0 = -1;
+    if (live && r < d) {
+      const int row = row0 + r * n;
+      load_b(row, B0);
+      id0 = __ldg(ids + row);
+      add_bt_u(B0, id0, t);
+    }
+    for (int j = r + R; live && j < d; j += R) {
+      T Bj[DP * DL];
+      const int row = row0 + j * n;
+      load_b(row, Bj);
+      add_bt_u(Bj, __ldg(ids + row), t);
+    }
+#pragma unroll
+    for (int c = 0; c < DL; ++c) part[c * SROWS_THREADS + tid] = t[c];
+    __syncthreads();
+    // slot 0: the slots' sums in slot order, then s = Dinv_k t
+    if (r == 0 && live) {
+      T tk[DL];
+#pragma unroll
+      for (int c = 0; c < DL; ++c) {
+        T a_ = part[c * SROWS_THREADS + l];
+        for (int q = 1; q < R; ++q) a_ += part[c * SROWS_THREADS + (q << lg_l) + l];
+        tk[c] = a_;
+      }
+#pragma unroll
+      for (int i = 0; i < DL; ++i) {
+        T a_ = Dk[i * DL] * tk[0];
+#pragma unroll
+        for (int c = 1; c < DL; ++c) a_ += Dk[i * DL + c] * tk[c];
+        sk[i * SROWS_THREADS + l] = a_;
+      }
+    }
+    __syncthreads();
+    T s[DL];
+#pragma unroll
+    for (int c = 0; c < DL; ++c) s[c] = live ? sk[c * SROWS_THREADS + l] : T(0);
+    // rounds of one row per slot: B s staged, then summed per camera (the
+    // first row's B from registers, a later row's, past R, read again from
+    // L1 or L2)
+    const int rounds = (d + R - 1) >> lg_r;
+    for (int q = 0; q < rounds; ++q) {
+      const int j = r + (q << lg_r);
+      int cam = -1;
+      if (live && j < d) {
+        if (q == 0) {
+          stage_bs(B0, s);
+          cam = id0;
+        } else {
+          T Bj[DP * DL];
+          const int row = row0 + j * n;
+          load_b(row, Bj);
+          stage_bs(Bj, s);
+          cam = __ldg(ids + row);
+        }
+        if (cam >= C) cam = -1;                     // out of range: dropped
+      }
+      cbuf[tid] = cam;
+      __syncthreads();
+      add_round<T, DP>(acc, wbuf, cbuf);
+      __syncthreads();
+    }
+  }
+  // the block's sums into its partial; after a grid barrier each cell
+  // summed over the blocks in a fixed order
+  T* mine = part_g + (size_t)blockIdx.x * cells;
+  for (int j = tid; j < cells; j += SROWS_THREADS) mine[j] = acc[j];
+  cooperative_groups::this_grid().sync();
+  sum_partials(part_g, (size_t)cells, [&](size_t c, T a_) { out[c] = a_; });
 }
 
 // raise `kernel`'s dynamic shared-memory limit to `bytes`, once per device
@@ -1133,6 +1402,92 @@ int scatter_add(const void* values, const void* idx, void* out, int N, int S,
   return (int)cudaGetLastError();
 }
 
+// schur_rows_kernel's cooperative launch: shared memory for the block's
+// per-camera sums and the slot and round buffers; as many blocks as the
+// tiles need, at most as many as the SMs hold at once (registers, threads
+// and shared memory; each block walks its tiles), and their partials'
+// scratch
+template <typename T, int DP, int DL>
+int schur_rows(const void* Bt, long long sb0, long long sb1, const void* ids,
+               const void* dinv, long long sd0, long long sd1, long long sd2,
+               const void* v, int C, void* out, const SlabBuckets& bk,
+               cudaStream_t st, int dev, int sms) {
+  const size_t smem =
+      (size_t)(C * DP + 2 * DL * SROWS_THREADS + DP * SROWS_WLD) * sizeof(T) +
+      SROWS_THREADS * sizeof(int);
+  if (smem > (size_t)SROWS_SMEM) return (int)cudaErrorInvalidValue;
+  auto kernel = &schur_rows_kernel<T, DP, DL>;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  int err = raise_smem(kernel, SROWS_SMEM, dev, raised);
+  if (err) return err;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, (const void*)kernel, SROWS_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  long long g = bk.tile0[bk.n];
+  if (g > (long long)per_sm * sms) g = (long long)per_sm * sms;
+  if (g < 1) g = 1;
+  bool captured;
+  void* part = nullptr;
+  err = partial_scratch(dev, st, (size_t)g * C * DP * sizeof(T), &captured,
+                        &part);
+  if (err) return err;
+  const T* b_ = (const T*)Bt;
+  const int* i_ = (const int*)ids;
+  const T* d_ = (const T*)dinv;
+  const T* v_ = (const T*)v;
+  T* o_ = (T*)out;
+  T* p_ = (T*)part;
+  SlabBuckets bk_ = bk;
+  void* args[] = {&b_, &sb0, &sb1, &i_, &d_, &sd0, &sd1, &sd2, &v_, &C, &o_,
+                  &p_, &bk_};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)g),
+                                  dim3(SROWS_THREADS), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return captured ? (int)cudaFreeAsync(part, st) : 0;
+}
+
+template <typename T>
+int schur_rows_entry(const void* Bt, long long sb0, long long sb1,
+                     const void* ids, const void* dinv, long long sd0,
+                     long long sd1, long long sd2, const void* v, int C,
+                     void* out, int N, int dp, int dl, int nb,
+                     const int* counts, const int* degrees, void* stream) {
+  if (nb < 1 || nb > SROWS_MAX_BUCKETS) return (int)cudaErrorInvalidValue;
+  SlabBuckets bk = {};
+  bk.n = nb;
+  long long row = 0, seg = 0, tiles = 0;
+  for (int b = 0; b < nb; ++b) {
+    if (counts[b] < 0 || degrees[b] < 1) return (int)cudaErrorInvalidValue;
+    int lg = 0;                       // row slots: the degree, rounded up
+    while (lg < SROWS_LG_MAX_SLOTS && (1 << lg) < degrees[b]) ++lg;
+    bk.count[b] = counts[b];
+    bk.degree[b] = degrees[b];
+    bk.lg_slots[b] = lg;
+    bk.row0[b] = (int)row;
+    bk.seg0[b] = (int)seg;
+    bk.tile0[b] = (int)tiles;
+    const int L = SROWS_THREADS >> lg;
+    row += (long long)counts[b] * degrees[b];
+    seg += counts[b];
+    tiles += (counts[b] + L - 1) / L;
+  }
+  bk.tile0[nb] = (int)tiles;
+  if (row != N || C < 1) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  int err = device_sms(&dev, &sms);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dp == 9 && dl == 3)
+    return schur_rows<T, 9, 3>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v, C,
+                               out, bk, st, dev, sms);
+  if (dp == 6 && dl == 3)
+    return schur_rows<T, 6, 3>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v, C,
+                               out, bk, st, dev, sms);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1155,6 +1510,24 @@ int g2o_scatter_add_f32(const void* values, const void* idx, void* out,
 int g2o_scatter_add_f64(const void* values, const void* idx, void* out,
                         int N, int S, int D, int dims_major, void* stream) {
   return scatter_add<double>(values, idx, out, N, S, D, dims_major, stream);
+}
+
+int g2o_schur_rows_f32(const void* Bt, long long sb0, long long sb1,
+                       const void* ids, const void* dinv, long long sd0,
+                       long long sd1, long long sd2, const void* v, int C,
+                       void* out, int N, int dp, int dl, int nb,
+                       const int* counts, const int* degrees, void* stream) {
+  return schur_rows_entry<float>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v, C,
+                                 out, N, dp, dl, nb, counts, degrees, stream);
+}
+
+int g2o_schur_rows_f64(const void* Bt, long long sb0, long long sb1,
+                       const void* ids, const void* dinv, long long sd0,
+                       long long sd1, long long sd2, const void* v, int C,
+                       void* out, int N, int dp, int dl, int nb,
+                       const int* counts, const int* degrees, void* stream) {
+  return schur_rows_entry<double>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v,
+                                  C, out, N, dp, dl, nb, counts, degrees, stream);
 }
 
 }  // extern "C"

@@ -42,6 +42,15 @@ and how they are laid out), built by
 * every other segment sum: per-block shared accumulators flushed with
   atomics into the output, which a memset zeroes first.
 
+Beside them, ``schur_rows_t``: the Schur term of the dims-major implicit
+Schur product ``S·v``, ``Σ_rows B_row Dinv_k Σ_j B_jᵀ v[cam_j]`` per
+camera, one cooperative launch (``g2o_schur_rows_*``) that replaces no
+Pallas kernel: it fuses K5's gather, the PyTorch products around it and
+K6's segment sum.  It is bound by bytes: ``Bt`` is read once per call and
+nothing of the edge axis is written; the kernel's note says how its
+blocks keep every intermediate in registers and shared memory and sum in
+a fixed order.
+
 On the solver's paths a call moves a megabyte or a few dozen, so the
 wrappers keep their host work small: the entry points are bound once, the
 stream handle is read as an int, and the device is switched only when the
@@ -65,6 +74,7 @@ import math
 
 import torch
 
+from g2o_tpu_torch.ops.bucketed import slab_broadcast_t, slab_sum_t
 from g2o_tpu_torch.ops.chol_kernels import _SUFFIX, build
 
 _lib = None
@@ -78,6 +88,15 @@ _raw_stream = _current_device = None
 # launch (the kernel's ROWSUM_MAX_CELLS, set by its shared memory);
 # otherwise a memset and the kernel
 ROWSUM_MAX_CELLS = 768
+# the Schur rows kernel's constants (gather_segment.cu: its template
+# instances' (camera, landmark) tangent widths, SROWS_MAX_BUCKETS,
+# SROWS_THREADS, SROWS_WLD, SROWS_SMEM): a block's shared memory holds its
+# (C, dp) sums beside the slot and round buffers of its threads
+SCHUR_ROWS_WIDTHS = ((9, 3), (6, 3))
+SCHUR_ROWS_MAX_BUCKETS = 16
+SCHUR_ROWS_THREADS = 256
+SCHUR_ROWS_WLD = SCHUR_ROWS_THREADS + 1
+SCHUR_ROWS_SMEM = 224 * 1024
 
 
 def _load():
@@ -92,6 +111,15 @@ def _load():
                 fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
                 fn.restype = ci
                 _FNS[kind, dtype] = fn
+        # Bt and its two outer strides, ids, Dinv and its three strides, v,
+        # C, out, N, dp, dl, buckets, counts, degrees, stream
+        cl, ip = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+        for dtype, suffix in _SUFFIX.items():
+            fn = getattr(lib, f"g2o_schur_rows_{suffix}")
+            fn.argtypes = [vp, cl, cl, vp, vp, cl, cl, cl, vp, ci, vp, ci, ci,
+                           ci, ci, ip, ip, vp]
+            fn.restype = ci
+            _FNS["schur_rows", dtype] = fn
         _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
             or (lambda index: torch.cuda.current_stream(index).cuda_stream)
         _current_device = getattr(torch._C, "_cuda_getDevice", None) \
@@ -136,6 +164,40 @@ def onehot_scatter_add_plain(idx, rows, n_seg: int):
 def onehot_scatter_add_t_plain(idx, rows_t, n_seg: int):
     """Dims-major segment sum: ``rows_t (D, N)`` -> ``(n_seg, D)``."""
     return onehot_scatter_add_plain(idx, rows_t.T, n_seg)
+
+
+def schur_rows_t_plain(counts, degrees, Bt, idx, DinvT, v,
+                       gather=onehot_gather_t_plain,
+                       scatter_add=onehot_scatter_add_t_plain):
+    """The Schur term of the dims-major Schur product per camera: ``Bt
+    (dp, dl, N)`` in slab order (the buckets' ``counts`` and ``degrees``),
+    camera ids ``idx (N,)``, ``DinvT (dl, dl, S_used)`` in bucket order and
+    ``v (C, dp)`` -> ``(C, dp)``, the sum over each camera's rows of
+    ``B_row s_k`` with ``s_k = Dinv_k Σ_j B_jᵀ v[idx_j]`` over the rows of
+    the row's landmark ``k`` (rows with an id outside ``[0, C)`` dropped):
+    the gather, ``Bᵀu`` summed per row, the slab sums, ``Dinv``, the slab
+    broadcast, ``B s`` summed per row and the segment sum.  ``gather`` and
+    ``scatter_add`` take the dims-major gather's and segment sum's
+    arguments (:func:`onehot_gather_t`, :func:`onehot_scatter_add_t` give
+    the composition the kernel replaces)."""
+    ut = gather(idx, v)
+    t = slab_sum_t(counts, degrees, torch.sum(Bt * ut[:, None, :], dim=0))
+    s = torch.sum(DinvT * t[None], dim=1)
+    rows = torch.sum(Bt * slab_broadcast_t(counts, degrees, s)[None], dim=1)
+    return scatter_add(idx, rows, v.shape[0])
+
+
+def schur_rows_fits(n_cam, dp, dl, dtype):
+    """Whether the Schur rows kernel takes ``n_cam`` cameras of width
+    ``dp`` beside landmarks of width ``dl`` in ``dtype``: its widths, and
+    its blocks' per-camera sums within their shared memory (the kernel's
+    own formula)."""
+    if (dp, dl) not in SCHUR_ROWS_WIDTHS or dtype not in _SUFFIX or \
+            n_cam < 1:
+        return False
+    size = 4 if dtype == torch.float32 else 8
+    return ((n_cam * dp + 2 * dl * SCHUR_ROWS_THREADS + dp * SCHUR_ROWS_WLD)
+            * size + SCHUR_ROWS_THREADS * 4 <= SCHUR_ROWS_SMEM)
 
 
 # --------------------------------------------------------------------------- #
@@ -270,7 +332,83 @@ def onehot_scatter_add_t(idx, rows_t, n_seg: int, precision=None):
                    True)
 
 
+def _check_schur_rows(counts, degrees, Bt, idx, DinvT, v):
+    """Raise on CUDA inputs the Schur rows kernel does not take."""
+    name = "schur_rows_t"
+    if not (Bt.is_cuda and idx.device == Bt.device
+            and DinvT.device == Bt.device and v.device == Bt.device):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    if Bt.dtype not in _SUFFIX or DinvT.dtype != Bt.dtype or \
+            v.dtype != Bt.dtype:
+        raise TypeError(f"{name}: needs float32 or float64 values of one "
+                        f"type, got {Bt.dtype}, {DinvT.dtype}, {v.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{name}: needs int32 ids, got {idx.dtype}")
+    if Bt.dim() != 3 or idx.dim() != 1 or DinvT.dim() != 3 or v.dim() != 2:
+        raise ValueError(f"{name}: needs Bt (dp, dl, N), ids (N,), DinvT "
+                         f"(dl, dl, S) and v (C, dp)")
+    dp, dl, n = Bt.shape
+    if not schur_rows_fits(v.shape[0], dp, dl, Bt.dtype):
+        raise ValueError(f"{name}: no kernel for widths (dp, dl) = "
+                         f"{(dp, dl)} and {v.shape[0]} cameras in "
+                         f"{Bt.dtype}; it takes {SCHUR_ROWS_WIDTHS} and "
+                         f"{SCHUR_ROWS_SMEM} bytes of block sums")
+    if Bt.stride(2) != 1 or not (idx.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: needs contiguous ids and v and Bt "
+                         f"contiguous along its edge axis")
+    if not 0 < len(counts) <= SCHUR_ROWS_MAX_BUCKETS or \
+            len(degrees) != len(counts):
+        raise ValueError(f"{name}: needs 1 to {SCHUR_ROWS_MAX_BUCKETS} "
+                         f"buckets, got {len(counts)} counts and "
+                         f"{len(degrees)} degrees")
+    slab_rows = sum(c * d for c, d in zip(counts, degrees))
+    if idx.shape[0] != n or n != slab_rows:
+        raise ValueError(f"{name}: {idx.shape[0]} ids and {n} rows of Bt "
+                         f"for slabs of {slab_rows} rows")
+    if tuple(DinvT.shape) != (dl, dl, sum(counts)) or v.shape[1] != dp:
+        raise ValueError(f"{name}: DinvT {tuple(DinvT.shape)} and v "
+                         f"{tuple(v.shape)} do not fit Bt {tuple(Bt.shape)} "
+                         f"and {sum(counts)} landmarks")
+    if n * dp * dl > _INT_MAX:
+        raise ValueError(f"{name}: {n} rows exceed the kernel's int indexing")
+
+
+def schur_rows_t(counts, degrees, Bt, idx, DinvT, v):
+    """The Schur term of the dims-major Schur product per camera, ``(C,
+    dp)`` (see :func:`schur_rows_t_plain`): one launch of the Schur rows
+    kernel on CUDA tensors, the plain version on CPU tensors.  ``counts``
+    and ``degrees`` are sequences of ints; ``Bt`` may be a view of the first
+    ``N`` rows of a wider batch (its edge axis contiguous), ``DinvT`` any
+    strided view."""
+    if Bt.is_cpu and idx.is_cpu and DinvT.is_cpu and v.is_cpu:
+        return schur_rows_t_plain(counts, degrees, Bt, idx, DinvT, v)
+    _check_schur_rows(counts, degrees, Bt, idx, DinvT, v)
+    dp, dl, n = Bt.shape
+    out = v.new_empty(v.shape)
+    if n == 0:
+        return out.zero_()
+    if not _FNS:
+        _load()
+    index = Bt.get_device()
+    fn = _FNS["schur_rows", Bt.dtype]
+    args = (Bt.data_ptr(), Bt.stride(0), Bt.stride(1), idx.data_ptr(),
+            DinvT.data_ptr(), *DinvT.stride(), v.data_ptr(), v.shape[0],
+            out.data_ptr(), n, dp, dl, len(counts),
+            (ctypes.c_int * len(counts))(*counts),
+            (ctypes.c_int * len(degrees))(*degrees), _raw_stream(index))
+    if index == _current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err:
+        raise RuntimeError(f"schur_rows_t kernel failed: CUDA error {err}")
+    schur_rows_t.launches += 1
+    return out
+
+
 onehot_gather.launches = 0
 onehot_gather_t.launches = 0
 onehot_scatter_add.launches = 0
 onehot_scatter_add_t.launches = 0
+schur_rows_t.launches = 0

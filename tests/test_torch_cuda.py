@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the K1/K2/K3/K4 kernels and the gather and
-segment-sum kernels (K5–K10) against their plain PyTorch versions, and the
+"""The port on a CUDA card: the K1/K2/K3/K4 kernels, the gather and
+segment-sum kernels (K5–K10) and the Schur rows kernel (the dims-major
+S·v's Schur term) against their plain PyTorch versions, and the
 PCG (per-solve and, on a manhattan graph, ``every_k``), supernodal, host
 Cholesky, explicit and implicit Schur (BAL; and the sba problems of
 ``chip_smoke.py`` on the general path and the bucketed multi-observer
@@ -758,6 +759,108 @@ def test_onehot_rejects_bad_input_on_card():
                                               device="cuda"), table, 2)
 
 
+# the Schur rows kernel's inputs at the dims-major implicit paths' sizes
+# (its output, the Schur term per camera, is (cameras, camera width)):
+# (cameras, points, observations, camera width) of ladybug, the stress
+# file, the Venice configuration of the benchmark, and an sba scene (widths
+# 6/3); "ladybug_view" takes B as a view of the first rows of a wider batch
+_SCHUR_ROWS_SHAPES = {"ladybug": (49, 7776, 31843, 9),
+                      "ladybug_view": (49, 7776, 31843, 9),
+                      "stress": (120, 40000, 198088, 9),
+                      "venice": (1778, 993923, 5001946, 9),
+                      "sba": (49, 6412, 218655, 6)}
+_SCHUR_ROWS_CACHE = {}
+
+
+def _schur_rows_inputs(kind, dtype):
+    """``(counts, degrees, Bt, ids, DinvT, v)`` on the card: tracks of 2 +
+    Poisson(mean - 2) observations bucketed as ``build_problem`` buckets
+    them, random B with zero padding rows (W = 0 there), random camera ids,
+    ``DinvT`` a dims-major view of row-major blocks as ``inv_small_t``
+    gives it."""
+    from g2o_tpu_torch.ops.bucketed import bucket_by_segment
+
+    key = (kind, dtype)
+    if key not in _SCHUR_ROWS_CACHE:
+        C, P, O, dp = _SCHUR_ROWS_SHAPES[kind]
+        rng = np.random.default_rng(sum(map(ord, kind)))
+        deg = 2 + rng.poisson(max(O / P - 2, 0.1), P)
+        plan = bucket_by_segment(np.repeat(np.arange(P), deg), P)
+        n = len(plan.perm_src)
+        real = torch.as_tensor(plan.perm_src < deg.sum(), device="cuda")
+        wide = n + 7 if kind.endswith("_view") else n
+        g = torch.Generator(device="cuda").manual_seed(len(kind))
+        Bt = torch.randn((dp, 3, wide), generator=g, dtype=dtype,
+                         device="cuda")
+        Bt[..., :n] *= real
+        Bt = Bt[..., :n]
+        ids = torch.as_tensor(rng.integers(0, C, n).astype(np.int32),
+                              device="cuda")
+        S = len(plan.seg_perm)
+        DinvT = torch.randn((S, 3, 3), generator=g, dtype=dtype,
+                            device="cuda").movedim(0, -1)
+        v = torch.randn((C, dp), generator=g, dtype=dtype, device="cuda")
+        _SCHUR_ROWS_CACHE.clear()
+        _SCHUR_ROWS_CACHE[key] = (plan.counts, plan.degrees, Bt, ids, DinvT,
+                                  v)
+    return _SCHUR_ROWS_CACHE[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-11)])
+@pytest.mark.parametrize("kind", list(_SCHUR_ROWS_SHAPES))
+def test_schur_rows_matches_plain_on_card(kind, dtype, tol):
+    """The Schur rows kernel (the S·v Schur term per camera) against its
+    plain version at the dims-major paths' sizes: one launch per call,
+    within the kernels' tolerance of the largest camera sum."""
+    _need_card()
+    args = _schur_rows_inputs(kind, dtype)
+    before = onehot.schur_rows_t.launches
+    got = onehot.schur_rows_t(*args)
+    want = onehot.schur_rows_t_plain(*args)
+    torch.cuda.synchronize()
+    assert onehot.schur_rows_t.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["ladybug", "stress", "venice"])
+def test_schur_rows_is_bit_identical_on_card(kind, dtype):
+    """The kernel adds in a fixed order: repeated calls give the same
+    bits, and each puts one operation on the card (no memset, no copy, no
+    segment sum after it)."""
+    _need_card()
+    args = _schur_rows_inputs(kind, dtype)
+    first = onehot.schur_rows_t(*args)
+    for _ in range(5):
+        assert torch.equal(onehot.schur_rows_t(*args), first)
+    assert _device_ops(lambda: onehot.schur_rows_t(*args)) == 1
+
+
+@pytest.mark.cuda
+def test_schur_rows_rejects_bad_input_on_card():
+    _need_card()
+    counts, degrees, Bt, ids, DinvT, v = _schur_rows_inputs("ladybug",
+                                                            torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        onehot.schur_rows_t(counts, degrees, Bt, ids.long(), DinvT, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        onehot.schur_rows_t(counts, degrees,
+                            Bt.permute(2, 0, 1).contiguous().permute(1, 2, 0),
+                            ids, DinvT, v)
+    with pytest.raises(ValueError, match="widths"):
+        onehot.schur_rows_t(counts, degrees, Bt[:7], ids, DinvT, v[:, :7])
+    with pytest.raises(ValueError, match="rows"):
+        onehot.schur_rows_t(counts, degrees, Bt[..., 1:], ids[1:], DinvT, v)
+    # the blocks' (C, 9) float32 sums past their shared memory
+    with pytest.raises(ValueError, match="cameras"):
+        onehot.schur_rows_t(counts, degrees, Bt, ids, DinvT,
+                            v.new_zeros((6000, 9)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bucket_landmarks,layout,precond", [
     (True, "auto", "schur_jacobi"), (False, "bucketed", "jacobi")])
@@ -765,24 +868,29 @@ def test_implicit_schur_on_card_matches_cpu(bucket_landmarks, layout,
                                             precond):
     """10 LM iterations on the C20 BAL file with Huber, float64, in the
     dims-major and the runtime-bucketed layout: the gather and segment-sum
-    kernels run on the card, never on the CPU."""
+    kernels run on the card, never on the CPU, and the dims-major form's
+    Schur rows kernel once per CG iteration."""
     _need_card()
     with gzip.open(C20, "rt") as fh:
         text = fh.read()
     wrappers = (onehot.onehot_gather, onehot.onehot_gather_t,
                 onehot.onehot_scatter_add, onehot.onehot_scatter_add_t)
-    chis, launches = [], []
+    chis, launches, cg = [], [], []
     for device in ("cpu", "cuda"):
         p = bal.load_bal_problem(io.StringIO(text), huber=1.0, device=device,
                                  bucket_landmarks=bucket_landmarks)
-        before = [w.launches for w in wrappers]
+        before = [w.launches for w in wrappers + (onehot.schur_rows_t,)]
         res = g2o_tpu_torch.optimize_fused(p, g2o_tpu_torch.ImplicitSchurSolver(
             max_iter=100, tol=1e-2, precond=precond, layout=layout), 10)
-        launches.append([w.launches - b for w, b in zip(wrappers, before)])
+        launches.append([w.launches - b for w, b in zip(
+            wrappers + (onehot.schur_rows_t,), before)])
         chis.append(res["chi2_per_iteration"] + [res["chi2_final"]])
-    assert launches[0] == [0, 0, 0, 0]
-    used = launches[1][1::2] if bucket_landmarks else launches[1][0::2]
+        cg.append(sum(res["cg_per_iteration"]))
+    assert launches[0] == [0, 0, 0, 0, 0]
+    used = launches[1][1:4:2] if bucket_landmarks else launches[1][0:4:2]
     assert min(used) > 0
+    # the dims-major form's S·v: one Schur rows launch per CG iteration
+    assert launches[1][4] == (cg[1] if bucket_landmarks else 0)
     np.testing.assert_allclose(chis[1], chis[0], rtol=1e-6)
 
 

@@ -444,14 +444,26 @@ def no_group():
 
 
 @pytest.mark.parametrize("layout", ["runtime_bucketed", "multi_observer",
-                                    "cgls_bucketed"])
-def test_world_of_one_bucketed_layouts_are_bit_equal(no_group, layout):
+                                    "cgls_bucketed", "dm"])
+def test_world_of_one_bucketed_layouts_are_bit_equal(no_group, monkeypatch,
+                                                     layout):
     """The bucketed layouts sharded over a world of one process (each
     process's slab rows, its zero-padded slab buffers and one all-reduce
-    per sum) give the unsharded step bit for bit."""
+    per sum) give the unsharded step bit for bit.  The ``dm`` form's
+    unsharded ``S·v`` goes through the Schur rows wrapper, its sharded one
+    through the slab sums and the all-reduce, never the wrapper."""
+    from g2o_tpu_torch.core.solvers import schur_implicit
+    from g2o_tpu_torch.ops import onehot
+
+    calls = []
+    monkeypatch.setattr(schur_implicit, "schur_rows_t", lambda *a: (
+        calls.append(1), onehot.schur_rows_t(*a))[1])
     tparallel.initialize_distributed(backend="gloo")
     mesh = tparallel.make_mesh()
-    if layout == "multi_observer":
+    if layout == "dm":
+        p = _cpu(tgen.create_ba_scene(**BA)[0], bucket_landmarks=True)
+        solver = tg2o.ImplicitSchurSolver(max_iter=30, tol=1e-10)
+    elif layout == "multi_observer":
         p = _cpu(tworker.mixed_sba_graph(*tgen.create_ba_scene(
             **tworker.MIXED_TEST_SCENE), TGraph, tsba), bucket_landmarks=True)
         solver = tg2o.ImplicitSchurSolver(max_iter=150, tol=1e-10)
@@ -467,10 +479,13 @@ def test_world_of_one_bucketed_layouts_are_bit_equal(no_group, layout):
         assert solver._layout["form"] == layout
     step = tparallel.make_fused_step(p, solver)
     e0, c0, _ = step(p.data, p.estimates, 1e-3)
+    unsharded = len(calls)
+    assert (unsharded > 0) == (layout == "dm")
     data = tparallel.shard_problem_data(p.data, mesh)
     assert data.group is not None
     e1, c1, _ = step(data, tparallel.replicate_estimates(p.estimates, mesh),
                      1e-3)
+    assert len(calls) == unsharded
     assert torch.equal(c0, c1)
     for t in e0:
         assert torch.equal(e0[t], e1[t]), t

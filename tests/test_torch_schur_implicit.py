@@ -11,7 +11,14 @@ versions.
   ~1e-13);
 * the 10-iteration fused-LM chi2 trajectory at ``bench.py``'s settings
   (``tol=1e-2``, ``max_iter=100``): rtol 1e-8, with the same CG iterations
-  and λ-trials per iteration, with and without Huber.
+  and λ-trials per iteration, with and without Huber;
+* the Schur rows wrapper's plain version (``onehot.schur_rows_t_plain``,
+  the Schur term per camera, which the ``dm`` form's ``S·v`` calls once
+  per CG iteration on unsharded data) against the same product by index
+  ops in natural row order, and the route: taken once per ``S·v`` on the
+  ``dm`` form (BAL's and sba's widths), never on the other forms; and
+  ``onehot.schur_rows_fits`` against the kernel's source (its constants,
+  widths and shared-memory test).
 
 Inputs: the committed C20 file (one bucket) and a small file from the
 port's stress generator (several buckets, a non-identity reorder)."""
@@ -35,6 +42,9 @@ from g2o_tpu_torch.core.solvers import schur_implicit
 from g2o_tpu_torch.core.types import EdgeType, TypeRegistry
 from g2o_tpu_torch.io import bal as tbal
 from g2o_tpu_torch.ops import onehot, robust
+from g2o_tpu_torch.parallel import worker as tworker
+from g2o_tpu_torch.sim import generators as tgen
+from g2o_tpu_torch.types import sba as tsba
 from g2o_tpu_torch.types.bal import VertexCameraBAL, bal_gauge_basis
 from g2o_tpu_torch.types.slam3d import VertexPointXYZ
 
@@ -347,3 +357,164 @@ def test_inv_small_t_matches_jax(r):
     _close(got, j_inv_small_t(At), 1e-12)
     _close(torch.einsum("ijn,jkn->ikn", got, torch.tensor(At)),
            np.broadcast_to(np.eye(r)[:, :, None], At.shape), 1e-10)
+
+
+def _dm_scene(kind, small_text, c20_text):
+    """A ``dm`` problem on the CPU, float64: the stress file (several
+    buckets), C20 (one bucket), an sba scene (widths 6/3) or the stress
+    file with two landmarks fixed (all-zero landmark blocks)."""
+    if kind == "sba":
+        g = tgen.create_ba_scene(n_cameras=6, n_points=60, seed=0)[0]
+        return g.compile(bucket_landmarks=True, device="cpu",
+                         dtype=torch.float64)
+    if kind == "fixed":
+        g = tbal.load_bal(io.StringIO(small_text), huber=1.0)
+        for vid in (8 + 3, 8 + 40):
+            g.set_fixed(vid, True)
+        return g.compile(bucket_landmarks=True, device="cpu")
+    text = small_text if kind == "stress" else c20_text
+    return tbal.load_bal_problem(io.StringIO(text), bucket_landmarks=True,
+                                 huber=1.0, device="cpu")
+
+
+def _schur_rows_by_index(counts, degrees, Bt, idx, DinvT, v):
+    """The Schur term per camera by index ops in natural row order: each
+    slab row's bucket-order landmark, ``Bᵀv[idx]`` summed per landmark by
+    ``index_add``, ``Dinv`` per landmark, ``B s`` per row and its sum per
+    camera by ``index_add``."""
+    seg = torch.cat([off + torch.arange(n).repeat(d) for off, n, d in zip(
+        np.cumsum((0,) + tuple(counts[:-1])), counts, degrees)])
+    ok = (idx >= 0) & (idx < v.shape[0])
+    cam = torch.where(ok, idx, 0).long()
+    u = torch.where(ok[:, None], v[cam], 0.0)
+    t = torch.zeros((sum(counts), Bt.shape[1]), dtype=Bt.dtype).index_add_(
+        0, seg, torch.einsum("acn,na->nc", Bt, u))
+    s = torch.einsum("ijk,kj->ki", DinvT, t)
+    rows = torch.einsum("acn,nc->na", Bt, s[seg])
+    return torch.zeros_like(v).index_add_(0, cam, rows * ok[:, None])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kind", ["stress", "c20", "sba", "fixed"])
+def test_schur_rows_plain_matches_index_ops(small_text, c20_text, kind,
+                                            dtype, tol):
+    """The plain Schur term on a solve's own ``Bt``, ids and ``DinvT``
+    (padding rows with W = 0, fixed landmarks' unit blocks) equals the
+    product by index ops, entry by entry within 1e-12 (float64) or 1e-5
+    (float32, against the float64 product) of the same product of absolute
+    values: the rounding bound of its sums, which cancel at λ = 1e-3."""
+    p = _dm_scene(kind, small_text, c20_text)
+    s = g2o_tpu_torch.ImplicitSchurSolver(max_iter=50, tol=1e-8).setup(p)
+    assert s._layout["form"] == "dm"
+    lin = p.linearize_fn(p.data, p.estimates)
+    ctx = s._parts["landmark_system"](p.data, lin, 1e-3, s.aux)
+    (name, Bt), = ctx["Bt"].items()
+    spec = p.bucket_specs[name]
+    idx = s._rows_here(p.data, name)[2]
+    DinvT = ctx["DinvT"][name]
+    pt = p.edge_types[name].vertex_types[spec.pose_slot]
+    v = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (p.counts[pt.name], pt.tangent_dim)))
+    want = _schur_rows_by_index(spec.counts, spec.degrees, Bt, idx, DinvT,
+                                v)
+    got = onehot.schur_rows_t_plain(spec.counts, spec.degrees, Bt.to(dtype),
+                                    idx, DinvT.to(dtype), v.to(dtype))
+    assert got.shape == v.shape and got.dtype == dtype
+    scale = _schur_rows_by_index(spec.counts, spec.degrees, Bt.abs(), idx,
+                                 DinvT.abs(), v.abs())
+    assert torch.all((got.double() - want).abs() <= tol * scale)
+    assert torch.equal(onehot.schur_rows_t(
+        spec.counts, spec.degrees, Bt, idx, DinvT, v),
+        onehot.schur_rows_t_plain(spec.counts, spec.degrees, Bt, idx, DinvT,
+                                  v))
+
+
+def _form_scene(form, small_text):
+    if form == "multi_observer":
+        return tworker.mixed_sba_graph(*tgen.create_ba_scene(
+            **tworker.MIXED_TEST_SCENE), g2o_tpu_torch.Graph, tsba).compile(
+                bucket_landmarks=True, device="cpu", dtype=torch.float64)
+    if form == "dm_sba":
+        return _dm_scene("sba", small_text, None)
+    return tbal.load_bal_problem(io.StringIO(small_text), huber=1.0,
+                                 device="cpu",
+                                 bucket_landmarks=form == "dm")
+
+
+@pytest.mark.parametrize("form,layout", [
+    ("dm", "auto"), ("dm_sba", "auto"), ("runtime_bucketed", "bucketed"),
+    ("rows", "rows"), ("multi_observer", "auto")])
+def test_schur_rows_route_engages_on_dm_only(small_text, monkeypatch, form,
+                                             layout):
+    """``S·v`` calls the Schur rows wrapper once per CG iteration on the
+    ``dm`` form, with the inputs its kernel takes (int32 contiguous ids, B
+    contiguous along the edge axis, a contiguous v, widths and a camera
+    count it fits), and never on the runtime-bucketed, rows and
+    multi-observer forms."""
+    calls = []
+
+    def spy(counts, degrees, Bt, idx, DinvT, v):
+        assert idx.dtype == torch.int32 and idx.is_contiguous()
+        assert Bt.stride(2) == 1 and v.is_contiguous()
+        assert onehot.schur_rows_fits(v.shape[0], Bt.shape[0], Bt.shape[1],
+                                      Bt.dtype)
+        calls.append(Bt.shape[-1])
+        return onehot.schur_rows_t(counts, degrees, Bt, idx, DinvT, v)
+
+    monkeypatch.setattr(schur_implicit, "schur_rows_t", spy)
+    p = _form_scene(form, small_text)
+    s = g2o_tpu_torch.ImplicitSchurSolver(max_iter=50, tol=1e-8,
+                                          layout=layout).setup(p)
+    assert s._layout["form"] == form.split("_sba")[0]
+    _, st = s._solve_full(p.data, p.linearize_fn(p.data, p.estimates), 1e-3,
+                          s.aux)
+    assert st["cg_iterations"] > 0
+    assert len(calls) == (st["cg_iterations"] if form.startswith("dm")
+                          else 0)
+    assert set(calls) <= set(s._layout["slab_rows"].values())
+
+
+def _schur_rows_source():
+    """The Schur rows kernel's constants and its launcher's shared-memory
+    formula (``csrc/gather_segment.cu``), and the widths its entry point
+    dispatches."""
+    import re
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            onehot.__file__)), "csrc", "gather_segment.cu")) as f:
+        src = f.read()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (SROWS_\w+) = ([^;]+);",
+                                 src):
+        consts[name] = eval(expr, {}, dict(consts))
+    smem = " ".join(re.search(r"const size_t smem =([^;]+);", src[
+        src.index("int schur_rows("):]).group(1).split())
+    widths = tuple((int(a), int(b)) for a, b in re.findall(
+        r"if \(dp == (\d+) && dl == (\d+)\)", src))
+    return consts, smem, widths
+
+
+@pytest.mark.parametrize("dtype,dp,dl", [
+    (torch.float32, 9, 3), (torch.float64, 9, 3), (torch.float32, 6, 3),
+    (torch.float64, 6, 3)])
+def test_schur_rows_fits_follows_the_kernel_source(dtype, dp, dl):
+    """``schur_rows_fits`` and the wrapper's constants say what the kernel's
+    source says: its widths, its most buckets and, at the largest camera
+    count it admits and one more, its launcher's shared-memory test."""
+    consts, smem, widths = _schur_rows_source()
+    assert widths == onehot.SCHUR_ROWS_WIDTHS
+    assert (consts["SROWS_THREADS"], consts["SROWS_WLD"],
+            consts["SROWS_MAX_BUCKETS"], consts["SROWS_SMEM"]) == (
+        onehot.SCHUR_ROWS_THREADS, onehot.SCHUR_ROWS_WLD,
+        onehot.SCHUR_ROWS_MAX_BUCKETS, onehot.SCHUR_ROWS_SMEM)
+    size = torch.finfo(dtype).bits // 8
+    expr = smem.replace("(size_t)", "").replace("sizeof(T)", str(size)) \
+        .replace("sizeof(int)", "4")
+
+    def kernel_fits(c):
+        return eval(expr, {}, dict(consts, C=c, DP=dp, DL=dl)) <= \
+            consts["SROWS_SMEM"]
+
+    most = max(c for c in range(1, 20000) if kernel_fits(c))
+    assert onehot.schur_rows_fits(most, dp, dl, dtype)
+    assert not onehot.schur_rows_fits(most + 1, dp, dl, dtype)
