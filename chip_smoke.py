@@ -67,12 +67,15 @@ exits non-zero without printing a result:
    bit for bit, (E_pad, 6) -> (49, 6) and (E_pad, 36) -> (49, 36) sums
    (the latter past ``ROWSUM_MAX_CELLS``: a memset and the kernel);
    Then the Schur rows kernel (``onehot.schur_rows_t``, the dims-major
-   ``S·v``'s Schur term per camera) on the three dims-major paths' own
-   ``Bt``, ids and ``DinvT`` and at the benchmark's Venice configuration
-   (``SCHUR_ROWS_VENICE``, drawn): against its plain version in float32 and
-   float64, the same bits on two calls, one operation a call; timed in
-   turns beside its plain version and the composition it replaces (K5,
-   the PyTorch products and slab sums, K6), with its bound over the
+   ``S·v``'s Schur term per camera) and its tiled form past the
+   shared-memory camera cap (``onehot.schur_rows_tiled_t``) on the three
+   dims-major paths' own ``Bt``, ids and ``DinvT`` and at the benchmark's
+   Venice and Final-13682 configurations (``SCHUR_ROWS_VENICE``,
+   ``SCHUR_ROWS_FINAL``, drawn; Final past the cap, so the tiled form
+   alone): each form against the plain version in float32 and float64,
+   the same bits on two calls, one operation a call; timed in turns
+   beside the plain version and the composition they replace (K5, the
+   PyTorch products and slab sums, K6), with the bound over the
    observations and over every slab row (``[schur_rows]``);
 8. main paths, implicit Schur: ``ImplicitSchurSolver`` with ``bench.py``'s
    settings, 10 LM iterations after a warm-up, float32, every camera free:
@@ -84,7 +87,11 @@ exits non-zero without printing a result:
    segment-sum kernels launched; then the time per layer (linearize, the
    per-trial setup, one CG iteration, the back-substitution) and the
    relative residual of one solve; on the runtime-bucketed problem also the
-   difference from the explicit solver's step.
+   difference from the explicit solver's step.  Then a dims-major path past
+   the Schur rows kernel's camera cap (``TILED_PATH``: the benchmark's
+   Final-13682 solver and scene rules at 6,000 cameras, built as
+   ``portbench/bench.py`` builds it), whose tiled-form launches must equal
+   its CG iterations (``[launches_ba_implicit_tiled]``).
 
 9. main path, manhattan3500 (``bench.py``'s ``bench_manhattan``):
    ``create_manhattan(3500, seed=0)`` (3500 SE2 poses, 6565 edges), f32
@@ -366,16 +373,26 @@ RUNTIME_ONE_OP = ("onehot_gather", "onehot_scatter_add")
 # the card at the three dims-major paths' shapes
 DIMS_MAJOR_ONE_OP = ("onehot_gather_t", "onehot_scatter_add_t")
 ONEHOT = ("onehot_gather", "onehot_gather_t", "onehot_scatter_add",
-          "onehot_scatter_add_t", "schur_rows_t")
+          "onehot_scatter_add_t", "schur_rows_t", "schur_rows_tiled_t")
 # the JSON line's entry of each new kernel, and the wrappers that launch it
 NEW_KERNELS = {"onehot_gather": ("onehot_gather", "onehot_gather_t"),
                "onehot_scatter_add": ("onehot_scatter_add",
                                       "onehot_scatter_add_t"),
-               "schur_rows": ("schur_rows_t",)}
+               "schur_rows": ("schur_rows_t",),
+               "schur_rows_tiled": ("schur_rows_tiled_t",)}
 # the benchmark's Venice configuration (portbench/configs/bal-venice-1778
 # .json): cameras, points, observations; the Schur rows kernel is timed on
 # a slab layout drawn at these counts (tracks of 2 + Poisson(mean - 2))
 SCHUR_ROWS_VENICE = (1778, 993923, 5001946)
+# the benchmark's Final-13682 configuration (portbench/configs/bal-final-
+# 13682.json), drawn the same way: past the Schur rows kernel's shared-
+# memory camera cap (5,915 cameras at dp = 9 in float32), so its tiled form
+SCHUR_ROWS_FINAL = (13682, 4456117, 28987644)
+# a dims-major main path past that cap: the Final configuration's solver,
+# scene rules and cold start at these counts (portbench/scene.py), LM
+# iterations after a warm-up
+TILED_PATH = dict(cameras=6000, points=100_000, observations=650_000,
+                  iters=5)
 # published H100 SXM peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1729,51 +1746,71 @@ def schur_rows_path_inputs(torch, p, solver, lam=1e-3):
 
 def schur_rows_phase(torch, oh, cases):
     """The Schur rows kernel (the S·v Schur term per camera) at each case
-    (``{tag: (float32 inputs, observations)}``): against its plain version
-    in float32 and float64 (the inputs cast) within TOL, two calls the same
-    bits, one operation on the card a call; then, float32, in turns (six
-    windows of 20 calls a side, the median): the kernel (``ms``), its plain
-    version and the composition it replaces (``composed_ms``: K5, the
-    PyTorch products and slab sums, K6), with the device µs and operations
-    of the kernel and the composition, and the kernel's bound: B and ids of
-    the observations (the slab layout's padding rows left out), Dinv and v
-    read, the camera sums written, against 3.35 TB/s (``padded_bound_ms``:
-    B and ids of every slab row).  Returns ``{shape: {"schur_rows":
-    times}}``."""
+    (``{tag: (float32 inputs, observations)}``) in each of its forms that
+    takes the case: the shared-memory form (``schur_rows_t``, where
+    ``schur_rows_fits``) and the tiled form (``schur_rows_tiled_t``, at
+    every camera count).  Each form against the plain version in float32
+    and float64 (the inputs cast) within TOL, two calls the same bits, one
+    operation on the card a call; then, float32, in turns (six windows of
+    20 calls a side, the median): the forms (``ms``, ``tiled_ms``), the
+    plain version and the composition they replace (``composed_ms``: K5,
+    the PyTorch products and slab sums, K6), with the device µs and
+    operations of each form and of the composition, and the bound: B and
+    ids of the observations (the slab layout's padding rows left out),
+    Dinv and v read, the camera sums written, against 3.35 TB/s
+    (``padded_bound_ms``: B and ids of every slab row; the tiled form's
+    stored rows are not counted).  Returns ``{shape: {kernel: times}}``."""
     out = {}
     for tag, (args32, n_obs) in cases.items():
         counts, degrees, Bt, ids, DinvT, v = args32
         C, (dp, dl, N), S = v.shape[0], Bt.shape, DinvT.shape[-1]
+        order = oh.schur_rows_order(ids, C)
+        shape = f"{dp}x{dl}x{N}->{C}"
+        forms = {"schur_rows_tiled": lambda *a: oh.schur_rows_tiled_t(
+            *a, order)}
+        if oh.schur_rows_fits(C, dp, dl, torch.float32):
+            forms = {"schur_rows": oh.schur_rows_t, **forms}
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).split(".")[1]
             args = (counts, degrees, Bt.to(dtype), ids, DinvT.to(dtype),
                     v.to(dtype))
-            got, want = oh.schur_rows_t(*args), oh.schur_rows_t_plain(*args)
-            rel = ((got - want).abs().max() / want.abs().max()).item()
-            same = torch.equal(got, oh.schur_rows_t(*args))
-            ops = device_profile(torch, lambda: oh.schur_rows_t(*args))[1]
-            phase("kernels", kernel="schur_rows_t", path=tag, dtype=dname,
-                  shape=f"{dp}x{dl}x{N}->{C}", rel_err=f"{rel:.3e}",
-                  same_bits_on_two_calls=same, device_ops_per_call=ops,
-                  tol=TOL[dname])
-            if rel > TOL[dname] or not same or ops != 1:
-                raise RuntimeError(f"schur_rows_t at {tag} {dname}: rel "
-                                   f"{rel}, same bits {same}, {ops} "
-                                   f"operations a call")
+            want = oh.schur_rows_t_plain(*args)
+            for kernel, fn in forms.items():
+                if not (kernel == "schur_rows_tiled"
+                        or oh.schur_rows_fits(C, dp, dl, dtype)):
+                    continue
+                got = fn(*args)
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                same = torch.equal(got, fn(*args))
+                del got
+                ops = device_profile(torch, lambda: fn(*args))[1]
+                phase("kernels", kernel=f"{kernel}_t", path=tag, dtype=dname,
+                      shape=shape, rel_err=f"{rel:.3e}",
+                      same_bits_on_two_calls=same, device_ops_per_call=ops,
+                      tol=TOL[dname])
+                if rel > TOL[dname] or not same or ops != 1:
+                    raise RuntimeError(f"{kernel}_t at {tag} {dname}: rel "
+                                       f"{rel}, same bits {same}, {ops} "
+                                       f"operations a call")
+            del args, want
 
         def composed():
             return oh.schur_rows_t_plain(
                 *args32, gather=oh.onehot_gather_t,
                 scatter_add=oh.onehot_scatter_add_t)
 
-        fns = {"ms": lambda: oh.schur_rows_t(*args32),
+        ms_of = {"schur_rows": "ms", "schur_rows_tiled": "tiled_ms"}
+        fns = {**{ms_of[k]: (lambda fn=fn: fn(*args32))
+                  for k, fn in forms.items()},
                "plain_ms": lambda: oh.schur_rows_t_plain(*args32),
                "composed_ms": composed}
         t = _in_turns(torch, fns, reps=20, rounds=6)
         want = composed()
-        rel = ((oh.schur_rows_t(*args32) - want).abs().max()
-               / want.abs().max()).item()
-        dev = {k: device_profile(torch, fns[k]) for k in ("ms", "composed_ms")}
+        rel = {k: ((fn(*args32) - want).abs().max()
+                   / want.abs().max()).item() for k, fn in forms.items()}
+        del want
+        dev = {k: device_profile(torch, fns[k])
+               for k in (*(ms_of[k] for k in forms), "composed_ms")}
 
         def bound_ms(rows):
             ops = rows * dp * dl * 4 + rows * dp + S * dl * dl * 2
@@ -1781,22 +1818,27 @@ def schur_rows_phase(torch, oh, cases):
             return max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S) * 1e3
 
         b_ms, pad_ms = bound_ms(n_obs), bound_ms(N)
-        out[f"{tag}:schur_rows_t:{dp}x{dl}x{N}->{C}"] = {"schur_rows": dict(
-            t, bound_ms=b_ms, padded_bound_ms=pad_ms, bound_by="bytes",
-            device_us_per_call=dev["ms"][0],
-            device_ops_per_call=dev["ms"][1],
-            composed_device_us=dev["composed_ms"][0],
-            composed_device_ops=dev["composed_ms"][1])}
-        phase("schur_rows", path=tag, shape=f"{dp}x{dl}x{N}->{C}",
-              buckets=len(counts), dtype="float32",
-              **{k: f"{x:.4f}" for k, x in t.items()},
-              device_us_per_call=f"{dev['ms'][0]:.2f}",
-              device_ops_per_call=dev["ms"][1],
+        for k in forms:
+            out[f"{tag}:{k}_t:{shape}"] = {k: dict(
+                ms=t[ms_of[k]], plain_ms=t["plain_ms"],
+                composed_ms=t["composed_ms"], bound_ms=b_ms,
+                padded_bound_ms=pad_ms, bound_by="bytes",
+                device_us_per_call=dev[ms_of[k]][0],
+                device_ops_per_call=dev[ms_of[k]][1],
+                composed_device_us=dev["composed_ms"][0],
+                composed_device_ops=dev["composed_ms"][1])}
+        pre = {"schur_rows": "", "schur_rows_tiled": "tiled_"}
+        phase("schur_rows", path=tag, shape=shape, buckets=len(counts),
+              dtype="float32", **{k: f"{x:.4f}" for k, x in t.items()},
+              **{f"{pre[k]}device_us_per_call": f"{dev[ms_of[k]][0]:.2f}"
+                 for k in forms},
+              **{f"{pre[k]}device_ops_per_call": dev[ms_of[k]][1]
+                 for k in forms},
               composed_device_us=f"{dev['composed_ms'][0]:.2f}",
               composed_device_ops=dev["composed_ms"][1],
               observations=n_obs, bound_ms=f"{b_ms:.4f}",
               padded_bound_ms=f"{pad_ms:.4f}", bound_by="bytes",
-              vs_composed_rel=f"{rel:.3e}")
+              **{f"{pre[k]}vs_composed_rel": f"{rel[k]:.3e}" for k in forms})
     return out
 
 
@@ -1829,11 +1871,15 @@ def implicit_main_path_phase(torch, g2o, wrappers, implicit, keep):
               cg_per_iteration=",".join(map(str, res["cg_per_iteration"])),
               **{f"{k}_per_lambda_trial": f"{launches[k] / max(trials, 1):.2f}"
                  for k in ONEHOT})
-        # the dims-major S·v: one Schur rows launch per CG iteration
+        # the dims-major S·v: one Schur rows launch per CG iteration, in
+        # its shared-memory form (the cameras fit)
         cg = sum(res["cg_per_iteration"])
-        if launches["schur_rows_t"] != (cg if form == "dm" else 0):
+        if (launches["schur_rows_t"] != (cg if form == "dm" else 0)
+                or launches["schur_rows_tiled_t"]):
             raise RuntimeError(f"{tag}: {launches['schur_rows_t']} Schur rows "
-                               f"launches in {cg} CG iterations ({form})")
+                               f"launches and {launches['schur_rows_tiled_t']}"
+                               f" of its tiled form in {cg} CG iterations "
+                               f"({form})")
         lt = implicit_layer_times(torch, g2o, p, solver, res["lambda_final"],
                                   explicit=suffix == "_runtime")
         phase(f"layers_ba_implicit{suffix}", **{
@@ -1842,6 +1888,57 @@ def implicit_main_path_phase(torch, g2o, wrappers, implicit, keep):
                                       else v) for k, v in lt.items()})
         by_path[tag] = launches
     return by_path
+
+
+def tiled_path_phase(torch, g2o, wrappers):
+    """A dims-major implicit Schur path past the Schur rows kernel's
+    shared-memory camera cap: the benchmark's Final-13682 configuration
+    (its solver, float32, Huber 1, its scene rules and the cold traffic's
+    warm-up start) at ``TILED_PATH``'s counts, built as the benchmark builds
+    it, ``TILED_PATH["iters"]`` LM iterations after a warm-up.  Every S·v
+    Schur term must take the tiled form: its launches equal the CG
+    iterations, none of the shared-memory form; every chi2 finite and the
+    last below the first.  Returns the run's launch counts."""
+    from portbench import bench
+    from portbench import scene as scene_mod
+
+    cfg = bench.load_json(os.path.join(
+        HERE, "portbench", "configs", "bal-final-13682.json"))
+    cfg.update({k: TILED_PATH[k]
+                for k in ("cameras", "points", "observations")})
+    traffic = bench.load_json(os.path.join(HERE, "portbench", "traffic",
+                                           "cold.json"))
+    scene = scene_mod.make_scene(cfg, 0, "cuda")
+    x0 = scene_mod.job_start(scene, traffic, -1)
+    p, solver, _ = bench.build_program(cfg, scene, x0, "cuda")
+    est0 = {t: v.clone() for t, v in p.estimates.items()}
+    tag = "main_path_ba_implicit_tiled"
+    g2o.optimize_fused(p, solver, 2)                 # warm-up
+    p.set_estimates({t: v.clone() for t, v in est0.items()})
+    for w in wrappers.values():
+        w.launches = 0
+    res = g2o.optimize_fused(p, solver, TILED_PATH["iters"])
+    launches = _launches(wrappers)
+    chis = res["chi2_per_iteration"] + [res["chi2_final"]]
+    cg = sum(res["cg_per_iteration"])
+    trials = sum(res["trials_per_iteration"])
+    phase("launches_ba_implicit_tiled", layout=solver._layout["form"],
+          schur_rows=",".join(solver._layout["schur_rows"].values()),
+          cameras=cfg["cameras"], points=cfg["points"],
+          observations=cfg["observations"], iterations=res["iterations"],
+          lm_trials=trials, cg_iterations_total=cg,
+          chi2_0=f"{chis[0]:.4f}", chi2_final=f"{res['chi2_final']:.4f}",
+          **{f"launches_{k}": launches[k] for k in ONEHOT})
+    if not all(math.isfinite(c) for c in chis) or not chis[-1] < chis[0]:
+        raise RuntimeError(f"{tag}: chi2 {chis}")
+    if (set(solver._layout["schur_rows"].values()) != {"tiled"}
+            or launches["schur_rows_tiled_t"] != cg
+            or launches["schur_rows_t"]):
+        raise RuntimeError(f"{tag}: {launches['schur_rows_tiled_t']} tiled "
+                           f"and {launches['schur_rows_t']} shared-memory "
+                           f"Schur rows launches in {cg} CG iterations "
+                           f"({solver._layout['schur_rows']})")
+    return {tag: launches}
 
 
 def implicit_layer_times(torch, g2o, p, solver, lam, explicit=False):
@@ -4418,12 +4515,14 @@ def main():
         **{f"{kind}": schur_rows_path_inputs(torch, *implicit[suffix][:2])
            for kind, suffix in (("ladybug_dm", ""), ("stress_dm", "_stress"),
                                 ("venice", "_venice"))},
-        "venice1778": schur_rows_synthetic(torch, *SCHUR_ROWS_VENICE)})
+        "venice1778": schur_rows_synthetic(torch, *SCHUR_ROWS_VENICE),
+        "final13682": schur_rows_synthetic(torch, *SCHUR_ROWS_FINAL)})
     by_path = main_path_phase(torch, g2o, wrappers)
     by_path.update(ba_main_path_phase(torch, g2o, wrappers, ba))
     keep = {}
     by_path.update(implicit_main_path_phase(torch, g2o, wrappers, implicit,
                                             keep))
+    by_path.update(tiled_path_phase(torch, g2o, wrappers))
     by_path.update(manhattan_path_phase(torch, g2o, wrappers))
     by_path.update(sba_path_phase(torch, g2o, wrappers, sba))
     by_path.update(api_phase(torch, g2o, wrappers, implicit, sba))
@@ -4447,7 +4546,10 @@ def main():
     for k in NEW_KERNELS:
         shape_key[k] = f"venice:{k}_t:{n_venice}x9<->800"
     shape_key["schur_rows"] = next(
-        k for k in schur_rows_times if k.startswith("venice1778:"))
+        k for k in schur_rows_times
+        if k.startswith("venice1778:schur_rows_t:"))
+    shape_key["schur_rows_tiled"] = next(
+        k for k in schur_rows_times if k.startswith("final13682:"))
     chol_src = "g2o_tpu_torch/csrc/batched_chol.cu"
     onehot_src = "g2o_tpu_torch/csrc/gather_segment.cu"
     experimental = "scripts/pallas_onehot_experimental.py"
@@ -4455,7 +4557,7 @@ def main():
               "solve_upper_batched": chol_src,
               "segment_sum": "g2o_tpu_torch/csrc/segment_sum.cu",
               "onehot_gather": onehot_src, "onehot_scatter_add": onehot_src,
-              "schur_rows": onehot_src}
+              "schur_rows": onehot_src, "schur_rows_tiled": onehot_src}
     replaces = {"chol_batched": "g2o_tpu/ops/pallas_chol.py:89",
                 "solve_lower_batched": "g2o_tpu/ops/pallas_chol.py:188",
                 "solve_upper_batched": "g2o_tpu/ops/pallas_chol.py:194",
@@ -4468,7 +4570,9 @@ def main():
                     f"segment_sum_rows_mxu (K8); :274 segment_sum_t_mxu2 "
                     f"(K9)"),
                 "schur_rows": "none: fuses K5, the PyTorch products and "
-                              "slab sums around it, and K6"}
+                              "slab sums around it, and K6",
+                "schur_rows_tiled": "none: the Schur rows kernel past its "
+                                    "shared-memory camera cap"}
 
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [

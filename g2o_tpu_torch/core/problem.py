@@ -97,6 +97,21 @@ PLAN_EDGE_AXIS = {"ids32": -1, "meas_t": -1, "info_t": -1, "free_mask": 0,
 # all-reduces of edge sums in this process: calls, bytes, host seconds
 REDUCE_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
+# the most elements of one per-edge temporary of a chunked stage (the
+# bucketed linearization's camera blocks, the implicit Schur
+# preconditioner's): within int32 indexing, as the kernels index
+EDGE_CHUNK_ELEMS = 2**31 - 1
+
+
+def edge_chunks(n_rows, width):
+    """Slices of ``range(n_rows)`` in order, each of at most
+    ``EDGE_CHUNK_ELEMS // width`` rows: the chunks of a stage whose widest
+    per-edge temporary holds ``width`` values an edge.  One slice of every
+    row wherever the whole edge axis fits."""
+    step = max(1, EDGE_CHUNK_ELEMS // width)
+    return [slice(lo, min(lo + step, n_rows))
+            for lo in range(0, max(n_rows, 1), step)]
+
 
 def shard_rank(data):
     """``(rank, world)`` of this process in ``data``'s shard group;
@@ -523,39 +538,60 @@ class Problem:
             return slab_sum_t(spec.counts, spec.degrees, z)
 
         ext = extras.setdefault(name, {})
-        WJ_ts = []
-        for s, vt in enumerate(et.vertex_types):
-            t, d = vt.name, vt.tangent_dim
-            # WJ[r,f,e] = Σ_s W[r,s,e] J[s,f,e]
-            WJ_t = torch.sum(Wt[:, :, None, :] * Jt[s][None, :, :, :], dim=1)
-            WJ_ts.append(WJ_t)
-            # Hss[d,f,e] = Σ_r J[r,d,e] WJ[r,f,e]
-            Hss_t = torch.sum(Jt[s][:, :, None, :] * WJ_t[:, None, :, :],
-                              dim=0).reshape(d * d, -1)          # (dd, E)
-            brows_t = -torch.sum(Jt[s] * Wet[:, None, :], dim=0)  # (d, E)
-            if s == spec.lm_slot:
-                bl_t = slab_sum(brows_t[:, :nb])                 # (d, S_used)
-                Hll_t = slab_sum(Hss_t[:, :nb])                  # (dd, S_used)
-                bl_bucket, Hll_bucket = bl_t.T, Hll_t.T.reshape(-1, d, d)
-                ext.update(bl_bucket=bl_bucket, Hll_bucket=Hll_bucket,
-                           bl_bucket_t=bl_t, Hll_bucket_t=Hll_t)
-                if spec.seg_identity:
-                    ns = bl_bucket.shape[0]
-                    b_blocks[t][:ns] += bl_bucket
-                    diag[t][:ns] += Hll_bucket
-                else:
-                    b_blocks[t].index_add_(0, plan["segp"], bl_bucket)
-                    diag[t].index_add_(0, plan["segp"], Hll_bucket)
-            else:
-                idx = plan["ids32"][s]
-                b_blocks[t] += onehot_scatter_add_t(
-                    idx, brows_t.contiguous(), self.counts[t])
-                diag[t] += onehot_scatter_add_t(
-                    idx, Hss_t.contiguous(), self.counts[t]).reshape(-1, d, d)
-        # off-diagonal B = Jpᵀ W Jl, reusing W·Jl of the landmark slot
         ps, ls = spec.pose_slot, spec.lm_slot
-        ext["Bt"] = torch.sum(Jt[ps][:, :, None, :]
-                              * WJ_ts[ls][:, None, :, :], dim=0)  # (dp, dl, E)
+
+        def slot_rows(s, sl):
+            """Slot ``s``'s W·J ``(r, d, n)``, diagonal blocks ``(dd, n)``
+            and gradient rows ``(d, n)`` over the edge rows ``sl``."""
+            J, d = Jt[s][..., sl], Jt[s].shape[1]
+            # WJ[r,f,e] = Σ_s W[r,s,e] J[s,f,e]
+            WJ_t = torch.sum(Wt[..., sl][:, :, None, :] * J[None], dim=1)
+            # Hss[d,f,e] = Σ_r J[r,d,e] WJ[r,f,e]
+            Hss_t = torch.sum(J[:, :, None, :] * WJ_t[:, None, :, :],
+                              dim=0).reshape(d * d, -1)
+            return WJ_t, Hss_t, -torch.sum(J * Wet[:, None, sl], dim=0)
+
+        # the landmark slot: per-slab sums in bucket order
+        lt, dl = et.vertex_types[ls].name, Jt[ls].shape[1]
+        WJ_l, Hll_rows, bl_rows = slot_rows(ls, slice(None))
+        bl_t = slab_sum(bl_rows[:, :nb])                         # (d, S_used)
+        Hll_t = slab_sum(Hll_rows[:, :nb])                       # (dd, S_used)
+        del Hll_rows, bl_rows
+        bl_bucket, Hll_bucket = bl_t.T, Hll_t.T.reshape(-1, dl, dl)
+        ext.update(bl_bucket=bl_bucket, Hll_bucket=Hll_bucket,
+                   bl_bucket_t=bl_t, Hll_bucket_t=Hll_t)
+        if spec.seg_identity:
+            ns = bl_bucket.shape[0]
+            b_blocks[lt][:ns] += bl_bucket
+            diag[lt][:ns] += Hll_bucket
+        else:
+            b_blocks[lt].index_add_(0, plan["segp"], bl_bucket)
+            diag[lt].index_add_(0, plan["segp"], Hll_bucket)
+        # the camera slot: its blocks summed per camera by the segment-sum
+        # kernel, and the off-diagonal B = Jpᵀ W Jl (W·Jl of the landmark
+        # slot), over edge chunks in order: no (r, d, d, E) product of the
+        # whole edge axis
+        t, d = et.vertex_types[ps].name, Jt[ps].shape[1]
+        r, E = Jt[ps].shape[0], Jt[ps].shape[-1]
+        idx = plan["ids32"][ps]
+        chunks = edge_chunks(E, r * d * d)
+        Bt = None if len(chunks) == 1 else Jt[ps].new_empty((d, dl, E))
+        for sl in chunks:
+            with span("edge_chunk"):
+                _, Hss_t, brows_t = slot_rows(ps, sl)
+                b_blocks[t] += onehot_scatter_add_t(
+                    idx[sl], brows_t.contiguous(), self.counts[t])
+                diag[t] += onehot_scatter_add_t(
+                    idx[sl], Hss_t.contiguous(),
+                    self.counts[t]).reshape(-1, d, d)
+                del Hss_t, brows_t
+                B_c = torch.sum(Jt[ps][..., sl][:, :, None, :]
+                                * WJ_l[..., sl][:, None, :, :], dim=0)
+                if Bt is None:
+                    Bt = B_c                                     # (dp, dl, E)
+                else:
+                    Bt[..., sl] = B_c
+        ext["Bt"] = Bt
         return (Jt, Wt, e_t, torch.sum(rho[:, 0] * act),
                 torch.sum(e2 * act))
 

@@ -80,14 +80,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from g2o_tpu_torch.core.problem import (edge_sum_, full_rows,
+from g2o_tpu_torch.core.problem import (edge_chunks, edge_sum_, full_rows,
                                         replicated_part, row_window)
 from g2o_tpu_torch.ops.bucketed import (bucket_by_segment,
                                         slab_broadcast_t, slab_sum_t)
 from g2o_tpu_torch.ops.onehot import (onehot_gather, onehot_gather_t,
                                       onehot_scatter_add,
                                       onehot_scatter_add_t, schur_rows_fits,
-                                      schur_rows_t)
+                                      schur_rows_order, schur_rows_t,
+                                      schur_rows_tiled_fits,
+                                      schur_rows_tiled_t)
 from g2o_tpu_torch.ops.smallblocks import inv_small, inv_small_t
 from g2o_tpu_torch.utils.tictoc import span
 
@@ -294,13 +296,19 @@ class ImplicitSchurSolver:
         dm = {name: bucketed and pre[name] and sole_obs[name]
               for name, _, _ in obs_specs}
         dm_lm = {lm_of[name] for name, _, _ in obs_specs if dm[name]}
-        # a ``dm`` batch whose widths and camera count the Schur rows
-        # kernel takes computes the Schur term of S·v in one call of it
-        # (unsharded data)
-        fused = {name: dm[name] and schur_rows_fits(
-            p.counts[pt_of[name]], p.vertex_types[pt_of[name]].tangent_dim,
-            p.vertex_types[lm_of[name]].tangent_dim, dtype)
-            for name, _, _ in obs_specs}
+        # the route of a ``dm`` batch's Schur term of S·v (unsharded data):
+        # one call of the Schur rows kernel, whose blocks hold the camera
+        # sums in shared memory where they fit (``shared``), else of its
+        # tiled form (``tiled``); a batch without one composes it
+        route = {}
+        for name, _, _ in obs_specs:
+            fits = (p.counts[pt_of[name]],
+                    p.vertex_types[pt_of[name]].tangent_dim,
+                    p.vertex_types[lm_of[name]].tangent_dim, dtype)
+            if dm[name] and schur_rows_fits(*fits):
+                route[name] = "shared"
+            elif dm[name] and schur_rows_tiled_fits(*fits):
+                route[name] = "tiled"
         # the obs batches whose Schur term reduces in natural landmark order
         rem = [spec for spec in obs_specs
                if not (bucketed and sole_obs[spec[0]])]
@@ -363,6 +371,15 @@ class ImplicitSchurSolver:
                     torch.as_tensor(q, device=dev),
                     torch.as_tensor(cam[src].astype(np.int32), device=dev))
             return held[key]
+
+        orders = {}
+
+        def cam_order(name, ids, n_cam):
+            """The tiled Schur rows form's camera order of the rows
+            ``ids`` of unsharded batch ``name``, made at its first use."""
+            if name not in orders:
+                orders[name] = schur_rows_order(ids, n_cam)
+            return orders[name]
 
         def take(x, idx):
             """``x[..., idx]`` for a slice or an index tensor."""
@@ -443,11 +460,12 @@ class ImplicitSchurSolver:
                 return onehot_gather_t(ids, v)
             return onehot_gather(ids, v).T
 
-        def cam_sum_t(data, name, rows_t, n_cam):
-            """Σ per camera of dims-major rows ``(D, n_here)`` -> ``(n_cam,
-            D)``: this process's partial sums, with the dims-major segment
-            sum on a ``dm`` batch and the row-major one elsewhere."""
-            ids = rows_here(data, name)[2]
+        def cam_sum_t(data, name, rows_t, n_cam, sl=slice(None)):
+            """Σ per camera of dims-major rows ``(D, n)`` (the rows ``sl``
+            of those held here) -> ``(n_cam, D)``: this process's partial
+            sums, with the dims-major segment sum on a ``dm`` batch and the
+            row-major one elsewhere."""
+            ids = rows_here(data, name)[2][sl]
             if dm[name]:
                 return onehot_scatter_add_t(ids, rows_t, n_cam)
             return onehot_scatter_add(ids, rows_t.T.contiguous(), n_cam)
@@ -549,16 +567,24 @@ class ImplicitSchurSolver:
                 for name, ps, ls in obs_specs:
                     pt, lt = pt_of[name], lm_of[name]
                     if bucketed:
-                        # C = B Dinv Bᵀ per row, dims-major
+                        # C = B Dinv Bᵀ per row, dims-major, over edge
+                        # chunks in order: no (dp, dp, dl, n) product of
+                        # the whole edge axis
                         Bts = ctx["Bt"][name]
-                        dp_ = Bts.shape[0]
+                        dp_, dl_, n_ = Bts.shape
                         Drows = rows_of(data, name, ctx["DinvT"][name])
-                        T_ = torch.sum(Bts[:, :, None, :] * Drows[None],
-                                       dim=1)
-                        C_t = torch.sum(T_[:, None, :, :] * Bts[None], dim=2)
-                        sdiag[pt] = sdiag[pt] - cam_sum_t(
-                            data, name, C_t.reshape(dp_ * dp_, -1),
-                            p.counts[pt]).reshape(-1, dp_, dp_)
+                        for sl in edge_chunks(n_, dp_ * dp_ * dl_):
+                            with span("edge_chunk"):
+                                B_c = Bts[..., sl]
+                                T_ = torch.sum(B_c[:, :, None, :]
+                                               * Drows[..., sl][None], dim=1)
+                                C_t = torch.sum(T_[:, None, :, :] * B_c[None],
+                                                dim=2)
+                                del T_
+                                sdiag[pt] = sdiag[pt] - cam_sum_t(
+                                    data, name, C_t.reshape(dp_ * dp_, -1),
+                                    p.counts[pt], sl).reshape(-1, dp_, dp_)
+                                del C_t
                     else:
                         vidx = data.edges[name].vidx
                         Bn = ctx["B"][name]
@@ -598,11 +624,16 @@ class ImplicitSchurSolver:
                         continue
                     pt = pt_of[name]
                     Bts = ctx["Bt"][name]
-                    if fused[name] and data.group is None:
+                    kind = route.get(name) if data.group is None else None
+                    if kind:
                         counts, degrees, _ = bspec[name]
-                        out[pt] = out[pt] - schur_rows_t(
-                            counts, degrees, Bts, rows_here(data, name)[2],
-                            ctx["DinvT"][name], vb[pt])
+                        ids = rows_here(data, name)[2]
+                        args = (counts, degrees, Bts, ids, ctx["DinvT"][name],
+                                vb[pt])
+                        out[pt] = out[pt] - (
+                            schur_rows_t(*args) if kind == "shared" else
+                            schur_rows_tiled_t(
+                                *args, cam_order(name, ids, p.counts[pt])))
                         continue
                     t_ = bucket_down_t(Bts, gather_t(data, name, vb[pt]),
                                        data, name)
@@ -712,7 +743,8 @@ class ImplicitSchurSolver:
             back_substitute=back_substitute), dict(
             bucketed=bucketed, form=form,
             buckets={name: len(s[0]) for name, s in bspec.items()},
-            slab_rows={name: s[2] for name, s in bspec.items()}))
+            slab_rows={name: s[2] for name, s in bspec.items()},
+            schur_rows=dict(route)))
 
     def _setup_general(self, p, lm_types, pose_types, obs_specs,
                        pose_edge_types, partial):

@@ -33,8 +33,10 @@
 // call costs is its launches and the host's work around them, not bytes.
 // Every branch below is ONE operation on the card, except the segment sum
 // past its one-launch branches (row-major with S*D past ROWSUM_MAX_CELLS,
-// dims-major with S*D past SEGT_MAX_CELLS or S past what one shared column
-// holds), which is a memset of `out` and a kernel.
+// dims-major with S*D past SEGT_MAX_CELLS or S past SEGT_COUNTS), which is
+// a memset of `out` and a kernel.  At BAL Final's 13,682 cameras (S past
+// SEGT_COUNTS) every dims-major camera sum of the implicit Schur path takes
+// that branch, and a call moves up to a few GB.
 //
 // Gather.  Row-major with a table of at most ~46 KB (K7 on the path): a
 // block stages the (S, D) table in shared memory, then walks tiles of
@@ -188,7 +190,10 @@
 // (cudaMallocAsync / cudaFreeAsync, graph memory nodes).
 //
 // Segment sum, otherwise (row-major past ROWSUM_MAX_CELLS, dims-major past
-// SEGT_MAX_CELLS or SEGT_COUNTS: no path reaches it): the threads walk the
+// SEGT_MAX_CELLS or SEGT_COUNTS: the dims-major camera sums of a BAL problem
+// with more than 8192 cameras, such as Final-13682's linearization,
+// preconditioner, reduced right-hand side and back-substitution, and the
+// row-major ones of the sba paths' wider blocks): the threads walk the
 // flat (row, column) elements of the per-row side in a grid-stride loop,
 // four per thread per pass, so a warp's loads are consecutive addresses in
 // either layout.  While one
@@ -254,7 +259,27 @@
 // bound is not measured: each block runs its phases in turn (loads, two
 // barriers, the camera adds), and the (C, DP) sums' 64 KB leave room for two
 // blocks on an SM.
-
+// The tiled form (g2o_schur_rows_tiled_*, past C*DP in SROWS_SMEM: BAL
+// Final-13682's 13,682 cameras need 508,972 bytes): the camera sums leave
+// shared memory, and the sums keep a fixed order without atomics.  One
+// cooperative launch of schur_rows_tiled_kernel, in two phases.  First the
+// landmark tiles as above, with no round buffers: each thread stores each
+// of its rows' B s (srows_ld values, DP padded to whole 16-byte stores) at
+// the row's own place, into the caller's scratch (a warp's stores are one
+// contiguous run).  order lists the rows sorted by camera, stably
+// (ops/onehot.py's schur_rows_order, made once per problem), so camera c's
+// rows are order[starts[c]] to order[starts[c+1] - 1], in slab order.
+// After a grid barrier the blocks take the cameras in turn and sum each
+// camera's rows, gathered through order, in a fixed order (the loop's note
+// says how).  Bound: bytes, B read once as above; beyond it the per-row B s
+// are written once and gathered once (48 bytes a row each way beside B's
+// 108 at DP = 9 in float32).  Nothing is kept between calls, so a call
+// gives the same bits every time.  Measured at Final's size (float32,
+// scripts/schur_rows_tiled_probe.py --split; H100 80GB HBM3, 700 W): 4.42
+// ms a call, of which the tiles without stores 1.91, their stores ~1.1 and
+// the gathered sums ~1.4; the first design, each row's B s stored at its
+// place in camera order and the runs read contiguously, took 6.55 (its
+// scattered 48-byte stores ~4.1).
 // Why not one thread block cluster for K8 (8 blocks, per-warp shared sums
 // in a fixed order, combined through distributed shared memory): measured
 // on an H100 80GB HBM3 at 700 W (scripts/onehot_ab.py), it took 17.4-18.6
@@ -327,6 +352,12 @@ constexpr int SROWS_LG_MAX_SLOTS = 3;           // at most 8 row slots, so a
                                                 // warp takes 32 landmarks
 constexpr int SROWS_MAX_BUCKETS = 16;
 constexpr int SROWS_SMEM = 224 * 1024;          // its shared-memory limit
+// the tiled form's rows of B s: DP values padded to whole 16-byte stores
+template <typename T>
+__host__ __device__ constexpr int srows_ld(int dp) {
+  return (dp + 16 / (int)sizeof(T) - 1) / (16 / (int)sizeof(T)) *
+         (16 / (int)sizeof(T));
+}
 
 // one 16-byte store of 16 / sizeof(T) values
 __device__ __forceinline__ void store16(float* p, const float* s) {
@@ -343,6 +374,17 @@ __device__ __forceinline__ void ldg16(const float* p, float* v) {
 }
 __device__ __forceinline__ void ldg16(const double* p, double* v) {
   const double2 t = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = t.x; v[1] = t.y;
+}
+
+// 16 / sizeof(T) values in one 16-byte load through L2 (data written earlier
+// in the same launch)
+__device__ __forceinline__ void ldcg16(const float* p, float* v) {
+  const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void ldcg16(const double* p, double* v) {
+  const double2 t = __ldcg(reinterpret_cast<const double2*>(p));
   v[0] = t.x; v[1] = t.y;
 }
 
@@ -999,16 +1041,19 @@ __device__ __forceinline__ void add_round(T* acc, const T* wbuf,
 // out (C, DP): out[c] = sum over the rows of camera c of B_row Dinv_k
 // sum_{rows j of k} B_jᵀ v[ids[j]], k each row's landmark (the header says
 // how).  B[a][c][row] = Bt[a*sb0 + c*sb1 + row], Dinv[i][j][k] = dinv[i*sd0
-// + j*sd1 + k*sd2]; part: gridDim.x x C*DP partials (no initial value).
-template <typename T, int DP, int DL>
-__global__ void __launch_bounds__(SROWS_THREADS)
-schur_rows_kernel(const T* __restrict__ Bt, long long sb0, long long sb1,
-                  const int* __restrict__ ids, const T* __restrict__ dinv,
-                  long long sd0, long long sd1, long long sd2,
-                  const T* __restrict__ v, int C, T* __restrict__ out,
-                  T* __restrict__ part_g, SlabBuckets bk) {
+// + j*sd1 + k*sd2].  part_g: gridDim.x x C*DP partials; SORTED (the tiled
+// form), each row's B s, srows_ld values a row, with order the rows sorted
+// by camera and starts each camera's first place in it (no initial value
+// either way)
+template <typename T, int DP, int DL, bool SORTED>
+__device__ __forceinline__ void schur_rows_body(
+    const T* __restrict__ Bt, long long sb0, long long sb1,
+    const int* __restrict__ ids, const T* __restrict__ dinv, long long sd0,
+    long long sd1, long long sd2, const T* __restrict__ v, int C,
+    T* __restrict__ out, T* __restrict__ part_g, const SlabBuckets& bk,
+    const int* __restrict__ order, const int* __restrict__ starts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cells = C * DP;
+  const int cells = SORTED ? 0 : C * DP;
   T* acc = reinterpret_cast<T*>(smem_raw);        // (C, DP): the block's sums
   T* part = acc + cells;                          // (DL, threads): per slot
   T* sk = part + DL * SROWS_THREADS;              // (DL, landmarks): s
@@ -1113,6 +1158,37 @@ schur_rows_kernel(const T* __restrict__ Bt, long long sb0, long long sb1,
     T s[DL];
 #pragma unroll
     for (int c = 0; c < DL; ++c) s[c] = live ? sk[c * SROWS_THREADS + l] : T(0);
+    if constexpr (SORTED) {
+      // each row's B s (srows_ld values, the padding zero) stored at the
+      // row's place, as 16-byte stores; a row whose camera lies outside [0,
+      // C) is left out.  The first row's B from registers, a later row's,
+      // past R, read again from L1 or L2
+      constexpr int V = 16 / (int)sizeof(T), LD = srows_ld<T>(DP);
+      auto put_bs = [&](const T (&B)[DP * DL], int cam, int row) {
+        if (cam < 0 || cam >= C) return;
+        T w[LD];
+#pragma unroll
+        for (int a = 0; a < DP; ++a) {
+          T a_ = B[a * DL] * s[0];
+#pragma unroll
+          for (int c = 1; c < DL; ++c) a_ += B[a * DL + c] * s[c];
+          w[a] = a_;
+        }
+#pragma unroll
+        for (int a = DP; a < LD; ++a) w[a] = T(0);
+        T* dst = part_g + (size_t)row * LD;
+#pragma unroll
+        for (int q = 0; q < LD; q += V) store16(dst + q, w + q);
+      };
+      if (live && r < d) put_bs(B0, id0, row0 + r * n);
+      for (int j = r + R; live && j < d; j += R) {
+        T Bj[DP * DL];
+        const int row = row0 + j * n;
+        load_b(row, Bj);
+        put_bs(Bj, __ldg(ids + row), row);
+      }
+      continue;
+    }
     // rounds of one row per slot: B s staged, then summed per camera (the
     // first row's B from registers, a later row's, past R, read again from
     // L1 or L2)
@@ -1139,12 +1215,94 @@ schur_rows_kernel(const T* __restrict__ Bt, long long sb0, long long sb1,
       __syncthreads();
     }
   }
+  if constexpr (SORTED) {
+    // after a grid barrier each camera's rows, in slab order, are summed
+    // by one block, the blocks taking cameras in turn: thread t adds rows
+    // order[start + t], order[start + t + SROWS_THREADS], ... in order, four
+    // loads ahead of the adds (through L2: the rows were written in this
+    // launch); a fixed shuffle tree adds each warp's lanes and the warps'
+    // sums are added in warp order
+    cooperative_groups::this_grid().sync();
+    constexpr int V = 16 / (int)sizeof(T), LD = srows_ld<T>(DP), U = 4;
+    T* wsum = part;                               // (warps, DP)
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int c = blockIdx.x; c < C; c += gridDim.x) {
+      const int hi = starts[c + 1];
+      T a[DP];
+#pragma unroll
+      for (int k = 0; k < DP; ++k) a[k] = T(0);
+      int i = starts[c] + tid;
+      for (; i + (U - 1) * SROWS_THREADS < hi; i += U * SROWS_THREADS) {
+        T x[U][LD];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int q = 0; q < LD; q += V)
+            ldcg16(part_g + (size_t)order[i + u * SROWS_THREADS] * LD + q,
+                   x[u] + q);
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int k = 0; k < DP; ++k) a[k] += x[u][k];
+      }
+      for (; i < hi; i += SROWS_THREADS) {
+        T x[LD];
+#pragma unroll
+        for (int q = 0; q < LD; q += V)
+          ldcg16(part_g + (size_t)order[i] * LD + q, x + q);
+#pragma unroll
+        for (int k = 0; k < DP; ++k) a[k] += x[k];
+      }
+#pragma unroll
+      for (int k = 0; k < DP; ++k)
+        for (int o = 16; o > 0; o >>= 1) a[k] += __shfl_xor_sync(0xffffffffu, a[k], o);
+      if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < DP; ++k) wsum[warp * DP + k] = a[k];
+      }
+      __syncthreads();
+      if (tid < DP) {
+        T a_ = wsum[tid];
+        for (int w = 1; w < SROWS_WARPS; ++w) a_ += wsum[w * DP + tid];
+        out[(size_t)c * DP + tid] = a_;
+      }
+      __syncthreads();                            // before wsum is reused
+    }
+    return;
+  }
   // the block's sums into its partial; after a grid barrier each cell
   // summed over the blocks in a fixed order
   T* mine = part_g + (size_t)blockIdx.x * cells;
   for (int j = tid; j < cells; j += SROWS_THREADS) mine[j] = acc[j];
   cooperative_groups::this_grid().sync();
   sum_partials(part_g, (size_t)cells, [&](size_t c, T a_) { out[c] = a_; });
+}
+
+// the Schur rows kernel: the camera sums in each block's shared memory
+template <typename T, int DP, int DL>
+__global__ void __launch_bounds__(SROWS_THREADS)
+schur_rows_kernel(const T* __restrict__ Bt, long long sb0, long long sb1,
+                  const int* __restrict__ ids, const T* __restrict__ dinv,
+                  long long sd0, long long sd1, long long sd2,
+                  const T* __restrict__ v, int C, T* __restrict__ out,
+                  T* __restrict__ part_g, SlabBuckets bk) {
+  schur_rows_body<T, DP, DL, false>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v,
+                                    C, out, part_g, bk, nullptr, nullptr);
+}
+
+// its tiled form: each row's B s stored, then each camera's rows gathered
+// and summed (the header says how)
+template <typename T, int DP, int DL>
+__global__ void __launch_bounds__(SROWS_THREADS)
+schur_rows_tiled_kernel(const T* __restrict__ Bt, long long sb0,
+                        long long sb1, const int* __restrict__ ids,
+                        const T* __restrict__ dinv, long long sd0,
+                        long long sd1, long long sd2, const T* __restrict__ v,
+                        int C, T* __restrict__ out, T* __restrict__ rows,
+                        SlabBuckets bk, const int* __restrict__ order,
+                        const int* __restrict__ starts) {
+  schur_rows_body<T, DP, DL, true>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v,
+                                   C, out, rows, bk, order, starts);
 }
 
 // raise `kernel`'s dynamic shared-memory limit to `bytes`, once per device
@@ -1407,11 +1565,50 @@ int scatter_add(const void* values, const void* idx, void* out, int N, int S,
 // tiles need, at most as many as the SMs hold at once (registers, threads
 // and shared memory; each block walks its tiles), and their partials'
 // scratch
+// the tiled form's cooperative launch (C past what a block's shared memory
+// sums): shared memory for the slot buffers alone; as many blocks as the
+// tiles need, at most as many as the SMs hold at once; `rows`, each row's
+// B s, is the caller's
+template <typename T, int DP, int DL>
+int schur_rows_tiled(const void* Bt, long long sb0, long long sb1,
+                     const void* ids, const void* dinv, long long sd0,
+                     long long sd1, long long sd2, const void* v, int C,
+                     void* out, const SlabBuckets& bk, cudaStream_t st, int sms,
+                     const int* order, const int* starts, void* rows) {
+  const size_t smem = (size_t)2 * DL * SROWS_THREADS * sizeof(T);
+  auto kernel = &schur_rows_tiled_kernel<T, DP, DL>;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, (const void*)kernel, SROWS_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  long long g = bk.tile0[bk.n];
+  if (g > (long long)per_sm * sms) g = (long long)per_sm * sms;
+  if (g < 1) g = 1;
+  const T* b_ = (const T*)Bt;
+  const int* i_ = (const int*)ids;
+  const T* d_ = (const T*)dinv;
+  const T* v_ = (const T*)v;
+  T* o_ = (T*)out;
+  T* r_ = (T*)rows;
+  SlabBuckets bk_ = bk;
+  void* args[] = {&b_, &sb0, &sb1, &i_, &d_, &sd0, &sd1, &sd2, &v_, &C, &o_,
+                  &r_, &bk_, &order, &starts};
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel,
+                                          dim3((unsigned)g),
+                                          dim3(SROWS_THREADS), args, smem, st);
+}
+
 template <typename T, int DP, int DL>
 int schur_rows(const void* Bt, long long sb0, long long sb1, const void* ids,
                const void* dinv, long long sd0, long long sd1, long long sd2,
                const void* v, int C, void* out, const SlabBuckets& bk,
-               cudaStream_t st, int dev, int sms) {
+               cudaStream_t st, int dev, int sms, const int* order,
+               const int* starts, void* rows) {
+  if (order)
+    return schur_rows_tiled<T, DP, DL>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2,
+                                       v, C, out, bk, st, sms, order, starts,
+                                       rows);
   const size_t smem =
       (size_t)(C * DP + 2 * DL * SROWS_THREADS + DP * SROWS_WLD) * sizeof(T) +
       SROWS_THREADS * sizeof(int);
@@ -1453,7 +1650,9 @@ int schur_rows_entry(const void* Bt, long long sb0, long long sb1,
                      const void* ids, const void* dinv, long long sd0,
                      long long sd1, long long sd2, const void* v, int C,
                      void* out, int N, int dp, int dl, int nb,
-                     const int* counts, const int* degrees, void* stream) {
+                     const int* counts, const int* degrees, void* stream,
+                     const int* order = nullptr, const int* starts = nullptr,
+                     void* rows = nullptr) {
   if (nb < 1 || nb > SROWS_MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   SlabBuckets bk = {};
   bk.n = nb;
@@ -1481,10 +1680,10 @@ int schur_rows_entry(const void* Bt, long long sb0, long long sb1,
   cudaStream_t st = (cudaStream_t)stream;
   if (dp == 9 && dl == 3)
     return schur_rows<T, 9, 3>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v, C,
-                               out, bk, st, dev, sms);
+                               out, bk, st, dev, sms, order, starts, rows);
   if (dp == 6 && dl == 3)
     return schur_rows<T, 6, 3>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v, C,
-                               out, bk, st, dev, sms);
+                               out, bk, st, dev, sms, order, starts, rows);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1528,6 +1727,33 @@ int g2o_schur_rows_f64(const void* Bt, long long sb0, long long sb1,
                        const int* counts, const int* degrees, void* stream) {
   return schur_rows_entry<double>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v,
                                   C, out, N, dp, dl, nb, counts, degrees, stream);
+}
+
+// the tiled form: order (N,) the rows sorted by camera, starts (C + 1,) each
+// camera's first place in it, rows the caller's scratch of srows_ld values a
+// row
+int g2o_schur_rows_tiled_f32(const void* Bt, long long sb0, long long sb1,
+                             const void* ids, const void* dinv, long long sd0,
+                             long long sd1, long long sd2, const void* v,
+                             int C, void* out, int N, int dp, int dl, int nb,
+                             const int* counts, const int* degrees,
+                             const int* order, const int* starts, void* rows,
+                             void* stream) {
+  return schur_rows_entry<float>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v, C,
+                                 out, N, dp, dl, nb, counts, degrees, stream,
+                                 order, starts, rows);
+}
+
+int g2o_schur_rows_tiled_f64(const void* Bt, long long sb0, long long sb1,
+                             const void* ids, const void* dinv, long long sd0,
+                             long long sd1, long long sd2, const void* v,
+                             int C, void* out, int N, int dp, int dl, int nb,
+                             const int* counts, const int* degrees,
+                             const int* order, const int* starts, void* rows,
+                             void* stream) {
+  return schur_rows_entry<double>(Bt, sb0, sb1, ids, dinv, sd0, sd1, sd2, v,
+                                  C, out, N, dp, dl, nb, counts, degrees,
+                                  stream, order, starts, rows);
 }
 
 }  // extern "C"

@@ -40,7 +40,9 @@ and how they are laid out), built by
   per-warp accumulators where they fit, else sorted by id once and summed
   per (segment, column) cell on one thread), then across the blocks;
 * every other segment sum: per-block shared accumulators flushed with
-  atomics into the output, which a memset zeroes first.
+  atomics into the output, which a memset zeroes first.  Every dims-major
+  camera sum of a BAL problem with more than 8192 cameras (Final-13682's
+  13,682) takes it, so its bits vary from run to run.
 
 Beside them, ``schur_rows_t``: the Schur term of the dims-major implicit
 Schur product ``S·v``, ``Σ_rows B_row Dinv_k Σ_j B_jᵀ v[cam_j]`` per
@@ -49,7 +51,13 @@ Pallas kernel: it fuses K5's gather, the PyTorch products around it and
 K6's segment sum.  It is bound by bytes: ``Bt`` is read once per call and
 nothing of the edge axis is written; the kernel's note says how its
 blocks keep every intermediate in registers and shared memory and sum in
-a fixed order.
+a fixed order.  Its blocks hold the ``(C, dp)`` camera sums in shared
+memory (``schur_rows_fits``: C <= 5915 at dp = 9 in float32); past that,
+``schur_rows_tiled_t`` runs its tiled form, one cooperative launch
+(``g2o_schur_rows_tiled_*``): each row's ``B s`` is stored and, after a
+grid barrier, each camera's rows, gathered in camera order
+(``schur_rows_order``, made once per problem), are summed in a fixed
+order, so it too gives the same bits on every run.
 
 On the solver's paths a call moves a megabyte or a few dozen, so the
 wrappers keep their host work small: the entry points are bound once, the
@@ -120,6 +128,14 @@ def _load():
                            ci, ci, ip, ip, vp]
             fn.restype = ci
             _FNS["schur_rows", dtype] = fn
+        # the tiled form: the same, then the rows in camera order, the
+        # cameras' first places in it, the rows' scratch
+        for dtype, suffix in _SUFFIX.items():
+            fn = getattr(lib, f"g2o_schur_rows_tiled_{suffix}")
+            fn.argtypes = [vp, cl, cl, vp, vp, cl, cl, cl, vp, ci, vp, ci, ci,
+                           ci, ci, ip, ip, vp, vp, vp, vp]
+            fn.restype = ci
+            _FNS["schur_rows_tiled", dtype] = fn
         _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
             or (lambda index: torch.cuda.current_stream(index).cuda_stream)
         _current_device = getattr(torch._C, "_cuda_getDevice", None) \
@@ -185,6 +201,27 @@ def schur_rows_t_plain(counts, degrees, Bt, idx, DinvT, v,
     s = torch.sum(DinvT * t[None], dim=1)
     rows = torch.sum(Bt * slab_broadcast_t(counts, degrees, s)[None], dim=1)
     return scatter_add(idx, rows, v.shape[0])
+
+
+def schur_rows_order(idx, n_cam: int):
+    """``(order, starts)`` for the tiled form of the Schur rows kernel: the
+    rows sorted by camera id, stably (a camera's rows keep their slab
+    order), and each camera's first place in that order, ``starts[n_cam]``
+    one past the last; int32.  A problem's ids are fixed, so its solver
+    computes this once."""
+    key, order = torch.sort(idx, stable=True)
+    starts = torch.searchsorted(key, torch.arange(
+        int(n_cam) + 1, dtype=key.dtype, device=key.device), out_int32=True)
+    return order.to(torch.int32), starts
+
+
+def schur_rows_tiled_fits(n_cam, dp, dl, dtype):
+    """Whether the tiled form of the Schur rows kernel takes ``n_cam``
+    cameras of width ``dp`` beside landmarks of width ``dl`` in ``dtype``:
+    the kernel's widths; its camera sums leave shared memory, so any camera
+    count within int32 indexing."""
+    return ((dp, dl) in SCHUR_ROWS_WIDTHS and dtype in _SUFFIX
+            and 1 <= n_cam and (n_cam + 1) * dp <= _INT_MAX)
 
 
 def schur_rows_fits(n_cam, dp, dl, dtype):
@@ -332,9 +369,10 @@ def onehot_scatter_add_t(idx, rows_t, n_seg: int, precision=None):
                    True)
 
 
-def _check_schur_rows(counts, degrees, Bt, idx, DinvT, v):
-    """Raise on CUDA inputs the Schur rows kernel does not take."""
-    name = "schur_rows_t"
+def _check_schur_rows(counts, degrees, Bt, idx, DinvT, v,
+                      name="schur_rows_t", fits=schur_rows_fits):
+    """Raise on CUDA inputs the Schur rows kernel (``fits``: its camera
+    test) does not take."""
     if not (Bt.is_cuda and idx.device == Bt.device
             and DinvT.device == Bt.device and v.device == Bt.device):
         raise ValueError(f"{name}: every tensor must be on one CUDA device")
@@ -348,11 +386,12 @@ def _check_schur_rows(counts, degrees, Bt, idx, DinvT, v):
         raise ValueError(f"{name}: needs Bt (dp, dl, N), ids (N,), DinvT "
                          f"(dl, dl, S) and v (C, dp)")
     dp, dl, n = Bt.shape
-    if not schur_rows_fits(v.shape[0], dp, dl, Bt.dtype):
+    if not fits(v.shape[0], dp, dl, Bt.dtype):
         raise ValueError(f"{name}: no kernel for widths (dp, dl) = "
                          f"{(dp, dl)} and {v.shape[0]} cameras in "
-                         f"{Bt.dtype}; it takes {SCHUR_ROWS_WIDTHS} and "
-                         f"{SCHUR_ROWS_SMEM} bytes of block sums")
+                         f"{Bt.dtype}; it takes {SCHUR_ROWS_WIDTHS} (the "
+                         f"shared-memory form: within {SCHUR_ROWS_SMEM} "
+                         f"bytes of block sums)")
     if Bt.stride(2) != 1 or not (idx.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: needs contiguous ids and v and Bt "
                          f"contiguous along its edge axis")
@@ -373,6 +412,37 @@ def _check_schur_rows(counts, degrees, Bt, idx, DinvT, v):
         raise ValueError(f"{name}: {n} rows exceed the kernel's int indexing")
 
 
+def _launch_schur_rows(wrapper, kind, counts, degrees, Bt, idx, DinvT, v,
+                       *extra):
+    """Launch ``g2o_<kind>_f32/_f64`` on checked CUDA inputs (``extra``: the
+    tiled form's pointers) on their device's current stream, and count it
+    in ``wrapper.launches``; returns the ``(C, dp)`` output."""
+    dp, dl, n = Bt.shape
+    out = v.new_empty(v.shape)
+    if n == 0:
+        return out.zero_()
+    if not _FNS:
+        _load()
+    index = Bt.get_device()
+    fn = _FNS[kind, Bt.dtype]
+    args = (Bt.data_ptr(), Bt.stride(0), Bt.stride(1), idx.data_ptr(),
+            DinvT.data_ptr(), *DinvT.stride(), v.data_ptr(), v.shape[0],
+            out.data_ptr(), n, dp, dl, len(counts),
+            (ctypes.c_int * len(counts))(*counts),
+            (ctypes.c_int * len(degrees))(*degrees), *extra,
+            _raw_stream(index))
+    if index == _current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err:
+        raise RuntimeError(f"{wrapper.__name__} kernel failed: CUDA error "
+                           f"{err}")
+    wrapper.launches += 1
+    return out
+
+
 def schur_rows_t(counts, degrees, Bt, idx, DinvT, v):
     """The Schur term of the dims-major Schur product per camera, ``(C,
     dp)`` (see :func:`schur_rows_t_plain`): one launch of the Schur rows
@@ -383,28 +453,39 @@ def schur_rows_t(counts, degrees, Bt, idx, DinvT, v):
     if Bt.is_cpu and idx.is_cpu and DinvT.is_cpu and v.is_cpu:
         return schur_rows_t_plain(counts, degrees, Bt, idx, DinvT, v)
     _check_schur_rows(counts, degrees, Bt, idx, DinvT, v)
+    return _launch_schur_rows(schur_rows_t, "schur_rows", counts, degrees,
+                              Bt, idx, DinvT, v)
+
+
+def schur_rows_tiled_t(counts, degrees, Bt, idx, DinvT, v, order):
+    """The Schur term of :func:`schur_rows_t` past the shared-memory camera
+    cap (:func:`schur_rows_fits` false), ``(C, dp)``: on CUDA tensors one
+    cooperative launch of the kernel's tiled form (each row's ``B s``
+    stored, then each camera's rows gathered and summed in a fixed order),
+    the plain version on CPU tensors.  ``order`` is
+    :func:`schur_rows_order` of ``idx``."""
+    if Bt.is_cpu and idx.is_cpu and DinvT.is_cpu and v.is_cpu:
+        return schur_rows_t_plain(counts, degrees, Bt, idx, DinvT, v)
+    name = "schur_rows_tiled_t"
+    _check_schur_rows(counts, degrees, Bt, idx, DinvT, v, name,
+                      schur_rows_tiled_fits)
+    rows_by_cam, starts = order
     dp, dl, n = Bt.shape
-    out = v.new_empty(v.shape)
-    if n == 0:
-        return out.zero_()
-    if not _FNS:
-        _load()
-    index = Bt.get_device()
-    fn = _FNS["schur_rows", Bt.dtype]
-    args = (Bt.data_ptr(), Bt.stride(0), Bt.stride(1), idx.data_ptr(),
-            DinvT.data_ptr(), *DinvT.stride(), v.data_ptr(), v.shape[0],
-            out.data_ptr(), n, dp, dl, len(counts),
-            (ctypes.c_int * len(counts))(*counts),
-            (ctypes.c_int * len(degrees))(*degrees), _raw_stream(index))
-    if index == _current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args)
-    if err:
-        raise RuntimeError(f"schur_rows_t kernel failed: CUDA error {err}")
-    schur_rows_t.launches += 1
-    return out
+    if not (rows_by_cam.dtype == starts.dtype == torch.int32
+            and rows_by_cam.device == starts.device == Bt.device
+            and rows_by_cam.is_contiguous() and starts.is_contiguous()
+            and tuple(rows_by_cam.shape) == (n,)
+            and tuple(starts.shape) == (v.shape[0] + 1,)):
+        raise ValueError(f"{name}: needs the order of its {n} rows over "
+                         f"{v.shape[0]} cameras (schur_rows_order), int32 "
+                         f"and contiguous on {Bt.device}")
+    # each row's B s, padded to whole 16-byte stores
+    vec = 16 // Bt.element_size()
+    rows = Bt.new_empty((n, -(-dp // vec) * vec))
+    return _launch_schur_rows(schur_rows_tiled_t, "schur_rows_tiled", counts,
+                              degrees, Bt, idx, DinvT, v,
+                              rows_by_cam.data_ptr(), starts.data_ptr(),
+                              rows.data_ptr())
 
 
 onehot_gather.launches = 0
@@ -412,3 +493,4 @@ onehot_gather_t.launches = 0
 onehot_scatter_add.launches = 0
 onehot_scatter_add_t.launches = 0
 schur_rows_t.launches = 0
+schur_rows_tiled_t.launches = 0

@@ -82,7 +82,8 @@ def _wrappers():
             "segment_sum": sk.segment_sum,
             **{k: getattr(oh, k) for k in (
                 "onehot_gather", "onehot_gather_t", "onehot_scatter_add",
-                "onehot_scatter_add_t", "schur_rows_t")}}
+                "onehot_scatter_add_t", "schur_rows_t",
+                "schur_rows_tiled_t")}}
 
 
 def _zero_counts():

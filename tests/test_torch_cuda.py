@@ -486,6 +486,8 @@ _DIMS_MAJOR_MAX_SEGMENTS = 8192
     (30000, 70000, 9, 2, 2),    # past a shared column: memset + kernel
     (113000, 49, 6, 1, 1),      # the mixed sba path's CG-body sums
     (113000, 49, 36, 2, 1),     # its preconditioner blocks: memset + kernel
+    (300000, 13682, 9, 2, 2),   # BAL Final's camera sums, past the sort's
+    (300000, 13682, 81, 2, 2),  # counters: memset + atomics
 ])
 def test_onehot_segment_sum_device_operations_on_card(n, s, d, ops, ops_t,
                                                       dtype):
@@ -859,6 +861,97 @@ def test_schur_rows_rejects_bad_input_on_card():
     with pytest.raises(ValueError, match="cameras"):
         onehot.schur_rows_t(counts, degrees, Bt, ids, DinvT,
                             v.new_zeros((6000, 9)))
+
+
+def _schur_rows_tiled_inputs(C, dtype):
+    """The Schur rows kernel's inputs with ``C`` cameras over about 2M
+    rows (the stress file's tracks at 450,000 points), and their order."""
+    from g2o_tpu_torch.ops.bucketed import bucket_by_segment
+
+    key = ("tiled", C, dtype)
+    if key not in _SCHUR_ROWS_CACHE:
+        rng = np.random.default_rng(C)
+        P = 450000
+        deg = 2 + rng.poisson(2.5, P)
+        plan = bucket_by_segment(np.repeat(np.arange(P), deg), P)
+        n = len(plan.perm_src)
+        real = torch.as_tensor(plan.perm_src < deg.sum(), device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(C)
+        Bt = torch.randn((9, 3, n), generator=g, dtype=dtype, device="cuda")
+        Bt *= real
+        ids = torch.as_tensor(rng.integers(0, C, n).astype(np.int32),
+                              device="cuda")
+        DinvT = torch.randn((len(plan.seg_perm), 3, 3), generator=g,
+                            dtype=dtype, device="cuda").movedim(0, -1)
+        v = torch.randn((C, 9), generator=g, dtype=dtype, device="cuda")
+        _SCHUR_ROWS_CACHE.clear()
+        _SCHUR_ROWS_CACHE[key] = ((plan.counts, plan.degrees, Bt, ids, DinvT,
+                                   v), onehot.schur_rows_order(ids, C))
+    return _SCHUR_ROWS_CACHE[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-11)])
+@pytest.mark.parametrize("C", [5916, 13682])
+def test_schur_rows_tiled_matches_plain_on_card(C, dtype, tol):
+    """Past the shared-memory camera cap (5,916: one camera past it in
+    float32; 13,682: BAL Final) the tiled form against the plain version
+    over about 2M rows: one launch a call, counted by its own wrapper,
+    within the kernels' tolerance of the largest camera sum."""
+    _need_card()
+    args, order = _schur_rows_tiled_inputs(C, dtype)
+    assert not onehot.schur_rows_fits(C, 9, 3, dtype)
+    assert args[2].shape[-1] > 2_000_000
+    before = onehot.schur_rows_tiled_t.launches
+    shared = onehot.schur_rows_t.launches
+    got = onehot.schur_rows_tiled_t(*args, order)
+    want = onehot.schur_rows_t_plain(*args)
+    torch.cuda.synchronize()
+    assert onehot.schur_rows_tiled_t.launches == before + 1
+    assert onehot.schur_rows_t.launches == shared
+    assert got.shape == want.shape and got.dtype == dtype
+    assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_schur_rows_tiled_is_bit_identical_on_card(dtype):
+    """The tiled form sums in a fixed order: two calls give the same bits,
+    and a call puts one operation on the card."""
+    _need_card()
+    args, order = _schur_rows_tiled_inputs(13682, dtype)
+    first = onehot.schur_rows_tiled_t(*args, order)
+    assert torch.equal(onehot.schur_rows_tiled_t(*args, order), first)
+    assert _device_ops(lambda: onehot.schur_rows_tiled_t(*args, order)) == 1
+
+
+@pytest.mark.cuda
+def test_schur_rows_tiled_rejects_bad_input_on_card():
+    _need_card()
+    args, (rows, starts) = _schur_rows_tiled_inputs(5916, torch.float32)
+    with pytest.raises(ValueError, match="order"):
+        onehot.schur_rows_tiled_t(*args, (rows.long(), starts))
+    with pytest.raises(ValueError, match="order"):
+        onehot.schur_rows_tiled_t(*args, (rows, starts[:-1]))
+    counts, degrees, Bt, ids, DinvT, v = args
+    with pytest.raises(ValueError, match="widths"):
+        onehot.schur_rows_tiled_t(counts, degrees, Bt[:7], ids, DinvT,
+                                  v[:, :7], (rows, starts))
+
+
+@pytest.mark.cuda
+def test_venice_sizes_keep_the_shared_memory_route_on_card():
+    """At the Venice configuration's camera count the Schur rows kernel's
+    shared-memory form runs, one launch a call, and the tiled form never."""
+    _need_card()
+    args = _schur_rows_inputs("venice", torch.float32)
+    assert onehot.schur_rows_fits(args[-1].shape[0], 9, 3, torch.float32)
+    tiled, before = onehot.schur_rows_tiled_t.launches, \
+        onehot.schur_rows_t.launches
+    assert _device_ops(lambda: onehot.schur_rows_t(*args)) == 1
+    assert onehot.schur_rows_t.launches > before
+    assert onehot.schur_rows_tiled_t.launches == tiled
 
 
 @pytest.mark.cuda

@@ -444,13 +444,14 @@ def no_group():
 
 
 @pytest.mark.parametrize("layout", ["runtime_bucketed", "multi_observer",
-                                    "cgls_bucketed", "dm"])
+                                    "cgls_bucketed", "dm", "dm_tiled"])
 def test_world_of_one_bucketed_layouts_are_bit_equal(no_group, monkeypatch,
                                                      layout):
     """The bucketed layouts sharded over a world of one process (each
     process's slab rows, its zero-padded slab buffers and one all-reduce
     per sum) give the unsharded step bit for bit.  The ``dm`` form's
-    unsharded ``S·v`` goes through the Schur rows wrapper, its sharded one
+    unsharded ``S·v`` goes through the Schur rows wrapper (``dm_tiled``:
+    past its camera cap, patched down, the tiled form's), its sharded one
     through the slab sums and the all-reduce, never the wrapper."""
     from g2o_tpu_torch.core.solvers import schur_implicit
     from g2o_tpu_torch.ops import onehot
@@ -458,9 +459,15 @@ def test_world_of_one_bucketed_layouts_are_bit_equal(no_group, monkeypatch,
     calls = []
     monkeypatch.setattr(schur_implicit, "schur_rows_t", lambda *a: (
         calls.append(1), onehot.schur_rows_t(*a))[1])
+    if layout == "dm_tiled":
+        monkeypatch.setattr(schur_implicit, "schur_rows_fits",
+                            lambda *a: False)
+        monkeypatch.setattr(schur_implicit, "schur_rows_tiled_t",
+                            lambda *a: (calls.append(1),
+                                        onehot.schur_rows_tiled_t(*a))[1])
     tparallel.initialize_distributed(backend="gloo")
     mesh = tparallel.make_mesh()
-    if layout == "dm":
+    if layout.startswith("dm"):
         p = _cpu(tgen.create_ba_scene(**BA)[0], bucket_landmarks=True)
         solver = tg2o.ImplicitSchurSolver(max_iter=30, tol=1e-10)
     elif layout == "multi_observer":
@@ -476,11 +483,11 @@ def test_world_of_one_bucketed_layouts_are_bit_equal(no_group, monkeypatch,
         solver = tg2o.CGLSSolver(max_iter=200, eta=1e-12)
     solver.setup(p)
     if layout != "cgls_bucketed":
-        assert solver._layout["form"] == layout
+        assert solver._layout["form"] == layout.split("_tiled")[0]
     step = tparallel.make_fused_step(p, solver)
     e0, c0, _ = step(p.data, p.estimates, 1e-3)
     unsharded = len(calls)
-    assert (unsharded > 0) == (layout == "dm")
+    assert (unsharded > 0) == layout.startswith("dm")
     data = tparallel.shard_problem_data(p.data, mesh)
     assert data.group is not None
     e1, c1, _ = step(data, tparallel.replicate_estimates(p.estimates, mesh),

@@ -475,6 +475,37 @@ def test_schur_rows_route_engages_on_dm_only(small_text, monkeypatch, form,
     assert set(calls) <= set(s._layout["slab_rows"].values())
 
 
+@pytest.mark.parametrize("form,layout", [
+    ("dm", "auto"), ("dm_sba", "auto"), ("runtime_bucketed", "bucketed"),
+    ("rows", "rows"), ("multi_observer", "auto")])
+def test_schur_rows_tiled_route_engages_on_dm_only(small_text, monkeypatch,
+                                                   form, layout):
+    """Past the shared-memory camera cap (``schur_rows_fits`` patched
+    false) ``S·v`` calls the tiled form once per CG iteration on the ``dm``
+    form, with its camera order, and never on the other forms."""
+    calls = []
+
+    def spy(counts, degrees, Bt, idx, DinvT, v, order):
+        rows, starts = order
+        assert rows.dtype == starts.dtype == torch.int32
+        assert rows.shape == idx.shape and starts.shape == (v.shape[0] + 1,)
+        calls.append(Bt.shape[-1])
+        return onehot.schur_rows_tiled_t(counts, degrees, Bt, idx, DinvT, v,
+                                         order)
+
+    monkeypatch.setattr(schur_implicit, "schur_rows_fits", lambda *a: False)
+    monkeypatch.setattr(schur_implicit, "schur_rows_tiled_t", spy)
+    p = _form_scene(form, small_text)
+    s = g2o_tpu_torch.ImplicitSchurSolver(max_iter=50, tol=1e-8,
+                                          layout=layout).setup(p)
+    assert s._layout["form"] == form.split("_sba")[0]
+    _, st = s._solve_full(p.data, p.linearize_fn(p.data, p.estimates), 1e-3,
+                          s.aux)
+    assert st["cg_iterations"] > 0
+    assert len(calls) == (st["cg_iterations"] if form.startswith("dm")
+                          else 0)
+
+
 def _schur_rows_source():
     """The Schur rows kernel's constants and its launcher's shared-memory
     formula (``csrc/gather_segment.cu``), and the widths its entry point
